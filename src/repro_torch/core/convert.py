@@ -1,0 +1,46 @@
+"""Carry index and serving state across from plain arrays and curve JSON.
+
+The reference package's state is numpy arrays plus a curve's JSON, so an
+index built (or a curve learned) there can be served here, and the reverse,
+without importing either package into the other.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from . import pgm as pgm_mod
+from .curve import curve_from_json
+from .index import IndexConfig, LMSFCIndex
+from .serve import ServingArrays, upload_serving_arrays
+
+
+def index_from_numpy(curve_json: str, cfg_dict: dict, xs, starts, mbrs,
+                     sort_dims, page_zmin, page_zmax) -> LMSFCIndex:
+    """An `LMSFCIndex` from its arrays; the PGM is rebuilt from
+    `page_zmin` with the config's error bound (it is a pure function of
+    the page z-mins)."""
+    cfg = IndexConfig(**cfg_dict)
+    curve = curve_from_json(curve_json)
+    page_zmin = np.asarray(page_zmin, dtype=np.uint64)
+    return LMSFCIndex(
+        curve=curve, cfg=cfg, K=curve.K,
+        xs=np.asarray(xs, dtype=np.uint64),
+        starts=np.asarray(starts, dtype=np.int64),
+        mbrs=np.asarray(mbrs, dtype=np.int64),
+        sort_dims=np.asarray(sort_dims),
+        page_zmin=page_zmin,
+        page_zmax=np.asarray(page_zmax, dtype=np.uint64),
+        pgm=pgm_mod.build_pgm(page_zmin, eps=cfg.pgm_eps))
+
+
+def serving_arrays_from_numpy(points, page_zmin, page_zmax, page_mbr,
+                              page_size, device=None) -> ServingArrays:
+    """Torch `ServingArrays` on `device` (CUDA unless the caller asks for
+    the CPU) from packed int32 arrays in the reference layout."""
+    host = ServingArrays(
+        points=np.asarray(points, dtype=np.int32),
+        page_zmin=np.asarray(page_zmin, dtype=np.int32),
+        page_zmax=np.asarray(page_zmax, dtype=np.int32),
+        page_mbr=np.asarray(page_mbr, dtype=np.int32),
+        page_size=np.asarray(page_size, dtype=np.int32))
+    return upload_serving_arrays(host, device)

@@ -1,0 +1,142 @@
+"""Build, load and count launches of the port's CUDA kernels.
+
+The kernels in `repro_torch/csrc/*.cu` have a plain C interface.  At first
+use `library()` compiles each source with its own `nvcc` process (all
+started together) for ``sm_90a``, links them into one shared library under
+``build/repro_torch/`` at the repo root, and loads it with `ctypes`.  The
+file name carries a hash of the sources and flags, so a stale build is
+never loaded.  Nothing is built or loaded at import time.
+
+`LAUNCHES` counts kernel launches per wrapper; a wrapper adds one right
+where it launches and nowhere else.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+LAUNCHES = {"window_filter": 0, "window_match": 0, "sfc_encode": 0}
+
+_VP, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    # pts, rect, size, out, G, d, cap, stream
+    "window_filter_launch": (_VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP),
+    "window_match_launch": (_VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP),
+    # x, pos, reg, out, n, d, K, R, M, number of SMs, stream
+    "sfc_encode_launch": (_VP, _VP, _VP, _VP, _I64, _INT, _INT, _INT, _INT,
+                          _INT, _VP),
+}
+
+_lib = None
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and Path("/usr/local/cuda/bin/nvcc").exists():
+        nvcc = "/usr/local/cuda/bin/nvcc"
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built "
+                           "from source on a machine with the CUDA toolkit")
+    return nvcc
+
+
+def _sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile and link the kernels unless the hashed library exists.
+    Returns its path; the compiler's log (``-Xptxas -v``: registers,
+    shared memory, spills) is written beside it as ``.log``."""
+    lib = library_path()
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tmp = Path(tempfile.mkdtemp(prefix="tmp-", dir=BUILD_DIR))
+    try:
+        procs = []
+        for src in _sources():
+            obj = tmp / f"{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log, objs = [], []
+        for src, obj, proc in procs:
+            out, _ = proc.communicate()
+            log.append(f"== {src.name}\n{out}")
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name}:\n{out}")
+            objs.append(str(obj))
+        so = tmp / lib.name
+        link = subprocess.run(
+            [nvcc, "-shared", "-Xcompiler", "-fPIC", "-o", str(so), *objs],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        lib.with_suffix(".log").write_text("\n".join(log))
+        os.replace(so, lib)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def launch(name: str, *args) -> None:
+    """Call C entry point `name` on the current stream; raise on a CUDA
+    error reported by the launch (``cudaGetLastError``)."""
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(library(), name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err}")
+
+
+def check_cuda_int32(name: str, t: torch.Tensor, ndim: int) -> None:
+    """Raise unless `t` is a contiguous int32 CUDA tensor of rank `ndim`."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor; got {t.device}")
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name} must be int32; got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must have rank {ndim}; got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

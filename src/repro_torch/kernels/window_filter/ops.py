@@ -1,0 +1,62 @@
+"""Public wrappers for the window-filter kernels (csrc/window_filter.cu).
+
+``backend="cuda"`` launches the CUDA kernel for CUDA tensors and uses the
+plain-torch twin only for CPU tensors; ``backend="torch"`` always uses the
+twin.  There is no fallback from a CUDA tensor to the twin.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import cuda_lib
+from .ref import window_filter_ref, window_match_ref
+
+BACKENDS = ("cuda", "torch")
+
+
+def _use_ref(pts: torch.Tensor, backend: str) -> bool:
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}; got {backend!r}")
+    return backend == "torch" or pts.device.type == "cpu"
+
+
+def _check(pts, rect, size) -> tuple:
+    cuda_lib.check_cuda_int32("pts", pts, 3)
+    cuda_lib.check_cuda_int32("rect", rect, 3)
+    cuda_lib.check_cuda_int32("size", size, 1)
+    G, d, cap = pts.shape
+    if tuple(rect.shape) != (G, d, 2) or tuple(size.shape) != (G,):
+        raise ValueError(f"shapes disagree: pts {tuple(pts.shape)}, rect "
+                         f"{tuple(rect.shape)}, size {tuple(size.shape)}")
+    if rect.device != pts.device or size.device != pts.device:
+        raise ValueError("pts, rect and size must be on one device")
+    return G, d, cap
+
+
+def window_filter(pts, rect, size, *, backend: str = "cuda"):
+    """pts: (G, d, cap) int32; rect: (G, d, 2); size: (G,) -> (G,) int32."""
+    if _use_ref(pts, backend):
+        return window_filter_ref(pts, rect, size)
+    G, d, cap = _check(pts, rect, size)
+    out = torch.empty(G, dtype=torch.int32, device=pts.device)
+    if G:
+        cuda_lib.launch("window_filter_launch", pts.data_ptr(),
+                        rect.data_ptr(), size.data_ptr(), out.data_ptr(),
+                        G, d, cap)
+        cuda_lib.LAUNCHES["window_filter"] += 1
+    return out
+
+
+def window_match(pts, rect, size, *, backend: str = "cuda"):
+    """Index-emitting variant of `window_filter`: the (G, cap) bool
+    membership mask of valid points inside their rectangle."""
+    if _use_ref(pts, backend):
+        return window_match_ref(pts, rect, size)
+    G, d, cap = _check(pts, rect, size)
+    out = torch.empty((G, cap), dtype=torch.bool, device=pts.device)
+    if G:
+        cuda_lib.launch("window_match_launch", pts.data_ptr(),
+                        rect.data_ptr(), size.data_ptr(), out.data_ptr(),
+                        G, d, cap)
+        cuda_lib.LAUNCHES["window_match"] += 1
+    return out

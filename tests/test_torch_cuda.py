@@ -1,0 +1,102 @@
+"""The port's CUDA kernels on the card, held against their plain-torch
+twins (the twins are held against the reference in the other
+tests/test_torch_*.py files).  Every test here needs an NVIDIA GPU and
+`nvcc`; without them each one skips.  This file imports no JAX, so it
+runs on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+All outputs are integers: tolerance 0, tensors must be equal."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import curve as tc
+from repro_torch.core import serve as tsv
+from repro_torch.core.index import IndexConfig, LMSFCIndex
+from repro_torch.core.theta import default_K
+from repro_torch.data.synth import make_dataset
+from repro_torch.data.workload import make_workload
+from repro_torch.kernels import cuda_lib
+from repro_torch.kernels.sfc_encode.ops import sfc_encode
+from repro_torch.kernels.sfc_encode.ref import sfc_encode_ref
+from repro_torch.kernels.window_filter.ops import window_filter, window_match
+from repro_torch.kernels.window_filter.ref import (window_filter_ref,
+                                                   window_match_ref)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _i32(a: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(a.astype(np.uint32).view(np.int32))
+
+
+@pytest.mark.parametrize("G,d,cap", [(1024, 2, 1024), (37, 3, 682),
+                                     (5, 4, 1)])
+def test_window_kernels_match_twins(cuda_device, G, d, cap):
+    rng = np.random.default_rng(G + d)
+    pts = _i32(rng.integers(0, 2**32, size=(G, d, cap), dtype=np.uint64))
+    lo = rng.integers(0, 2**32, size=(G, d), dtype=np.uint64)
+    hi = np.minimum(lo + rng.integers(0, 2**31, size=(G, d),
+                                      dtype=np.uint64), 2**32 - 1)
+    rect = _i32(np.stack([lo, hi], axis=-1))
+    size = rng.integers(-1, cap + 2, size=G).astype(np.int32)
+    cpu = tuple(map(torch.from_numpy, (pts, rect, size)))
+    dev = tuple(t.to(cuda_device) for t in cpu)
+    before = dict(cuda_lib.LAUNCHES)
+    got_c = window_filter(*dev)
+    got_m = window_match(*dev)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["window_filter"] == before["window_filter"] + 1
+    assert cuda_lib.LAUNCHES["window_match"] == before["window_match"] + 1
+    assert torch.equal(got_c.cpu(), window_filter_ref(*cpu))
+    assert torch.equal(got_m.cpu(), window_match_ref(*cpu))
+
+
+@pytest.mark.parametrize("d,family,depth", [(2, "global", 1),
+                                            (2, "piecewise", 2),
+                                            (3, "piecewise", 2),
+                                            (4, "piecewise", 2)])
+def test_sfc_encode_kernel_matches_twin(cuda_device, d, family, depth):
+    """(4, piecewise, 2) has 256 regions: its 64 KB position table is
+    read from global memory instead of shared memory."""
+    K = 32 if d == 2 else default_K(d)
+    curve = tc.random_curve(np.random.default_rng(3), d, K, family=family,
+                            depth=depth)
+    xs = _i32(np.random.default_rng(4).integers(0, 2**K, size=(5000, d),
+                                                dtype=np.uint64))
+    before = cuda_lib.LAUNCHES["sfc_encode"]
+    got = sfc_encode(torch.from_numpy(xs).to(cuda_device), curve)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["sfc_encode"] == before + 1
+    assert torch.equal(got.cpu(), sfc_encode_ref(torch.from_numpy(xs), curve))
+
+
+@pytest.mark.parametrize("family", ["global", "piecewise"])
+def test_served_batches_match_host_twins(cuda_device, family):
+    """Count and Range through the kernels on the card equal the plain
+    twins on the host, including forced overflow."""
+    data = make_dataset("osm", 20000, seed=1)
+    curve = tc.random_curve(np.random.default_rng(2), 2, 32, family=family)
+    idx = LMSFCIndex.build(data, curve=curve,
+                           cfg=IndexConfig(page_bytes=2048))
+    Ls, Us = make_workload(data, 32, seed=0, width_scale=0.1)
+    rects = tsv.pack_query_rects(Ls, Us)
+    on_card = tsv.build_serving_arrays(idx)
+    on_host = tsv.build_serving_arrays(idx, device="cpu")
+    for max_cand, max_hits in ((64, 4096), (1, 4)):
+        kw = dict(max_cand=max_cand, q_chunk=8)
+        for fn in (tsv.make_query_fn(curve, **kw),
+                   tsv.make_range_fn(curve, max_hits=max_hits, **kw)):
+            got = fn(on_card, rects)
+            want = fn(on_host, rects)
+            for g, w in zip(got, want):
+                assert g.device.type == "cuda"
+                assert torch.equal(g.cpu(), w)

@@ -1,0 +1,46 @@
+"""The port stands alone: `repro_torch` and `chip_smoke.py` import neither
+JAX nor anything of the reference package `repro`."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+    for p in PORT.rglob("*.py") if p.name != "__init__.py")
+
+
+def test_port_modules_import_without_jax_or_reference():
+    assert len(MODULES) >= 20
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            "import importlib\n"
+            f"for m in {MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "assert not any(k == 'jax' or k.startswith('jax.') or "
+            "k == 'repro' or k.startswith('repro.') "
+            "for k, v in sys.modules.items() if v is not None)\n")
+    proc = subprocess.run([sys.executable, "-c", code],
+                          cwd=ROOT, capture_output=True, text=True,
+                          env=dict(os.environ,
+                                   PYTHONPATH=str(ROOT / "src")),
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_port_sources_never_name_jax_or_reference():
+    pattern = re.compile(
+        r"^\s*(import\s+(jax|repro)\b(?!_torch)|from\s+(jax|repro)\b(?!_torch))",
+        re.MULTILINE)
+    files = list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    offenders = [str(p.relative_to(ROOT)) for p in files
+                 if pattern.search(p.read_text())]
+    assert offenders == []
+    assert pattern.search("import jax.numpy as jnp")
+    assert pattern.search("from repro.core import serve")
+    assert not pattern.search("from repro_torch.core import serve")

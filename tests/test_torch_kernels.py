@@ -1,0 +1,124 @@
+"""The port's kernel packages vs the reference's Pallas kernels.
+
+On the CPU the port's wrappers take their plain-torch twins (the tensors
+lie on the CPU); those are held against the reference's kernels in
+interpret mode and its jnp oracles.  The CUDA kernels themselves run only
+on a GPU: tests/test_torch_cuda.py holds them against the twins there.
+All outputs are integers: tolerance 0, arrays must be equal."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import curve as rc
+from repro.core.theta import default_K
+from repro.kernels.sfc_encode.ops import sfc_encode as r_sfc_encode
+from repro.kernels.window_filter.ops import window_filter as r_window_filter
+from repro.kernels.window_filter.ops import window_match as r_window_match
+from repro_torch.core import curve as tc
+from repro_torch.kernels import cuda_lib
+from repro_torch.kernels.sfc_encode.ops import sfc_encode
+from repro_torch.kernels.sfc_encode.ref import sfc_encode_ref
+from repro_torch.kernels.window_filter.ops import window_filter, window_match
+from repro_torch.kernels.window_filter.ref import (window_filter_ref,
+                                                   window_match_ref)
+
+
+def _i32(a: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(a.astype(np.uint32).view(np.int32))
+
+
+def _filter_inputs(seed, G, d, cap):
+    """Unsigned coordinates over the full 32-bit range (sign bit live),
+    random rects, and sizes from 0 to past cap."""
+    rng = np.random.default_rng(seed)
+    pts = rng.integers(0, 2**32, size=(G, d, cap), dtype=np.uint64)
+    lo = rng.integers(0, 2**32, size=(G, d), dtype=np.uint64)
+    hi = np.minimum(lo + rng.integers(0, 2**31, size=(G, d),
+                                      dtype=np.uint64), 2**32 - 1)
+    rect = np.stack([lo, hi], axis=-1)
+    rect[0] = [0, 2**32 - 1]                     # a rect that holds all
+    size = rng.integers(0, cap + 2, size=G).astype(np.int32)
+    return _i32(pts), _i32(rect), size
+
+
+@pytest.mark.parametrize("G,d,cap", [(16, 2, 128), (13, 3, 64), (8, 4, 256)])
+def test_window_filter_twins_match_reference(G, d, cap):
+    pts, rect, size = _filter_inputs(G + d + cap, G, d, cap)
+    jp, jr, js = jnp.asarray(pts), jnp.asarray(rect), jnp.asarray(size)
+    want = np.asarray(r_window_filter(jp, jr, js, backend="xla"))
+    pallas = np.asarray(r_window_filter(jp, jr, js, backend="pallas",
+                                        interpret=True))
+    np.testing.assert_array_equal(pallas, want)
+    tp, tr, ts = map(torch.from_numpy, (pts, rect, size))
+    for got in (window_filter_ref(tp, tr, ts), window_filter(tp, tr, ts),
+                window_filter(tp, tr, ts, backend="torch")):
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("G,d,cap", [(16, 2, 128), (13, 3, 64)])
+def test_window_match_twins_match_reference(G, d, cap):
+    pts, rect, size = _filter_inputs(7 * G + d, G, d, cap)
+    jp, jr, js = jnp.asarray(pts), jnp.asarray(rect), jnp.asarray(size)
+    want = np.asarray(r_window_match(jp, jr, js, backend="xla"))
+    pallas = np.asarray(r_window_match(jp, jr, js, backend="pallas",
+                                       interpret=True))
+    np.testing.assert_array_equal(pallas, want)
+    tp, tr, ts = map(torch.from_numpy, (pts, rect, size))
+    for got in (window_match_ref(tp, tr, ts), window_match(tp, tr, ts)):
+        assert got.dtype == torch.bool
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("d,family,depth", [(2, "global", 1), (3, "global", 1),
+                                            (4, "global", 1),
+                                            (2, "piecewise", 1),
+                                            (2, "piecewise", 2)])
+def test_sfc_encode_twin_matches_reference(d, family, depth):
+    K = default_K(d)
+    ref_curve = rc.random_curve(np.random.default_rng(d + depth), d, K,
+                                family=family, depth=depth)
+    curve = tc.curve_from_json(ref_curve.to_json())
+    rng = np.random.default_rng(d)
+    xs = _i32(rng.integers(0, 2**K, size=(700, d), dtype=np.uint64))
+    want = np.asarray(r_sfc_encode(jnp.asarray(xs), ref_curve, backend="xla"))
+    pallas = np.asarray(r_sfc_encode(jnp.asarray(xs), ref_curve,
+                                     backend="pallas", block_n=256,
+                                     interpret=True))
+    np.testing.assert_array_equal(pallas, want)
+    xt = torch.from_numpy(xs)
+    for got in (sfc_encode_ref(xt, curve), sfc_encode(xt, curve),
+                sfc_encode(xt, curve, backend="torch")):
+        assert got.dtype == torch.int32 and tuple(got.shape) == (700, 2)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_wrappers_refuse_unknown_backends_and_devices():
+    """No fallback: a tensor that is neither on the CPU nor on a CUDA
+    device is refused, never handed to the plain twin."""
+    pts = torch.zeros((2, 2, 8), dtype=torch.int32, device="meta")
+    rect = torch.zeros((2, 2, 2), dtype=torch.int32, device="meta")
+    size = torch.zeros(2, dtype=torch.int32, device="meta")
+    x = torch.zeros((4, 2), dtype=torch.int32, device="meta")
+    curve = tc.default_curve(2, 32)
+    for call in (lambda: window_filter(pts, rect, size),
+                 lambda: window_match(pts, rect, size),
+                 lambda: sfc_encode(x, curve)):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            call()
+    cpu = torch.zeros((2, 2, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="backend"):
+        window_filter(cpu, cpu[:, :, :2], cpu[:, 0, 0], backend="pallas")
+    with pytest.raises(ValueError, match="backend"):
+        sfc_encode(cpu[0], curve, backend="xla")
+
+
+def test_library_path_is_keyed_on_the_sources():
+    path = cuda_lib.library_path()
+    assert path.parent == cuda_lib.BUILD_DIR
+    assert path.parent.parts[-2:] == ("build", "repro_torch")
+    assert path == cuda_lib.library_path()
+    names = {p.name for p in cuda_lib.CSRC.glob("*.cu")}
+    assert names == {"window_filter.cu", "sfc_encode.cu"}
+    assert "arch=compute_90a,code=sm_90a" in cuda_lib.NVCC_FLAGS
