@@ -7,25 +7,34 @@ no result.  Phases, each printing one JSON line:
 
 1. set-up: builds the CUDA kernels from `src/repro_torch/csrc/` into
    `build/repro_torch/` and prints the card's name and power limit;
-2. kernels: each kernel against its plain-torch twin on the card, bit for
-   bit, with times and bounds, at the largest shape the main path gives
-   it and at a larger one;
-3. main path: a 10M-row OSM-like index (d=2, K=32, heuristic paging, a
-   seeded random global curve) served on the card, Count and Range batches
+2. smbo: curve learning (SMBO, Algorithm 1) on the card through
+   `learn_sfc`, on a 5% sample of each path's data with 100 sampled
+   queries: a global curve for the main path (d=2, K=32) and a depth-2
+   piecewise curve for the piecewise path (d=3, K=21).  Each run is held
+   against the same run on the encode kernel's plain twin, its best
+   candidates against the host's `batched` evaluator, and its learned
+   cost against the z-order anchor; every round must launch the pooled
+   encode kernel;
+3. kernels: each kernel against its plain-torch twin on the card, bit for
+   bit, with times and bounds, at the shapes its path gives it and at a
+   larger one;
+4. main path: a 10M-row OSM-like index (d=2, K=32, heuristic paging) under
+   the learned global curve, served on the card, Count and Range batches
    through the CUDA kernels, held bit for bit against the plain-torch
    backend on the card and against brute force;
-4. piecewise path: a 1M-row NYC-like index (d=3) under a seeded depth-2
+5. piecewise path: a 1M-row NYC-like index (d=3) under the learned
    piecewise curve, held the same way;
-5. launch check: every kernel ran on each path.
+6. launch check: every kernel ran on each path.
 
 The line before the last lists the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero without
-that line.  ``--osm-rows``/``--nyc-rows``/``--batches`` cut the depth for a
-quick run; the defaults are the full run.
+that line.  ``--osm-rows``/``--nyc-rows``/``--batches``/``--smbo-iters``
+cut the depth for a quick run; the defaults are the full run.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import statistics
 import subprocess
@@ -179,7 +188,191 @@ def phase_setup() -> str:
 
 
 # ---------------------------------------------------------------------------
-# phase 2: each kernel against its plain twin at the main path's shapes
+# phase 2: SMBO curve learning on the card
+# ---------------------------------------------------------------------------
+
+
+class _SmboClock:
+    """Wraps the SMBO path's stages for one `learn_sfc` run: seconds in the
+    host index builds, the surrogate, the shared-point encode, the pool
+    pack + upload and the pooled program (each device stage ends in a
+    synchronize), plus, per BatchEval round, the engine `auto` chose and
+    the pooled-encode launches."""
+
+    def __init__(self):
+        self.s = {k: 0.0 for k in ("build", "surrogate", "encode", "pack",
+                                   "program")}
+        self.rounds = []
+        self._saved = []
+
+    def _wrap(self, owner, name, key, sync=False, static=False):
+        import torch
+        fn = getattr(owner, name)
+        self._saved.append((owner, name, owner.__dict__[name]))
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                if sync:
+                    torch.cuda.synchronize()
+                self.s[key] += time.perf_counter() - t0
+        setattr(owner, name, staticmethod(timed) if static else timed)
+
+    def __enter__(self):
+        from repro_torch.core import batcheval, cost, smbo
+        from repro_torch.core.index import LMSFCIndex
+        from repro_torch.core.surrogate import RandomForest
+        from repro_torch.kernels import cuda_lib
+        self._wrap(LMSFCIndex, "build", "build", static=True)
+        self._wrap(RandomForest, "fit", "surrogate")
+        self._wrap(RandomForest, "predict", "surrogate")
+        self._wrap(cost, "pool_keys", "encode", sync=True)
+        self._wrap(batcheval, "_pack_index_pool", "pack", sync=True)
+        self._wrap(batcheval, "_pool_program", "program", sync=True)
+        run_pool, evaluate_pool = cost.run_workload_pool, smbo.evaluate_pool
+        self._saved += [(cost, "run_workload_pool", run_pool),
+                        (smbo, "evaluate_pool", evaluate_pool)]
+
+        def run_workload_pool(*a, engine, **kw):
+            self.rounds[-1]["engine"] = engine
+            return run_pool(*a, engine=engine, **kw)
+
+        def one_round(cs, *a, **kw):
+            before = cuda_lib.LAUNCHES["sfc_encode_pool"]
+            self.rounds.append({"candidates": len(cs)})
+            out = evaluate_pool(cs, *a, **kw)
+            self.rounds[-1]["sfc_encode_pool"] = (
+                cuda_lib.LAUNCHES["sfc_encode_pool"] - before)
+            return out
+        cost.run_workload_pool = run_workload_pool
+        smbo.evaluate_pool = one_round
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in reversed(self._saved):
+            setattr(owner, name, orig)
+        return False
+
+
+def smbo_sample(data, seed: int, width_scale: float, K: int,
+                n_queries: int = 100) -> tuple:
+    """The paper's learning input: a seeded 5% sample of the rows, the
+    sampled workload over it, and the scale-matched evaluation page size
+    of `benchmarks/common.py` (8192 B x sample fraction x 4, in [512,
+    8192]; 1638 B for a 5% sample)."""
+    import numpy as np
+    from repro_torch.core.index import IndexConfig
+    from repro_torch.data.workload import make_workload
+    rng = np.random.default_rng(seed)
+    pick = np.sort(rng.choice(len(data), size=len(data) // 20,
+                              replace=False))
+    sample = data[pick]
+    Ls, Us = make_workload(sample, n_queries, seed=seed,
+                           width_scale=width_scale, K=K)
+    page_bytes = int(min(8192, max(512, 8192 * len(sample) / len(data) * 4)))
+    return sample, Ls, Us, IndexConfig(paging="heuristic",
+                                       page_bytes=page_bytes)
+
+
+def _result_key(res) -> tuple:
+    return (res.curve_best.to_json(), res.y_best, res.history,
+            [(c.to_json(), y) for c, y in res.evaluated])
+
+
+def phase_smbo(name: str, data, *, K: int, space: str, depth: int,
+               max_iters: int, seed: int, width_scale: float) -> dict:
+    """`learn_sfc` on the card with its own defaults (n_init 8, pool 48,
+    4 evaluations per round, evaluator "pooled"), held four ways: the
+    plain-twin run is identical, the best 4 candidates' costs equal the
+    host `batched` evaluator's, every round took the device program and
+    launched the pooled encode, and the learned cost is at most the z-order
+    anchor's."""
+    import torch
+    from repro_torch.core.cost import evaluate_curve, evaluate_pool
+    from repro_torch.core.curve import default_curve
+    from repro_torch.core.smbo import learn_sfc
+    from repro_torch.kernels import cuda_lib
+
+    sample, Ls, Us, cfg = smbo_sample(data, seed, width_scale, K)
+    kw = dict(K=K, cfg=cfg, space=space, depth=depth, max_iters=max_iters,
+              seed=seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    cuda_lib.reset_launches()
+    with _SmboClock() as clock:
+        t0 = time.perf_counter()
+        res = learn_sfc(sample, Ls, Us, **kw)
+        total_s = time.perf_counter() - t0
+    launches = dict(cuda_lib.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - base_bytes
+    for i, r in enumerate(clock.rounds):
+        check(r.get("engine") == "torch",
+              f"{name}: round {i} took the {r.get('engine')!r} engine, not "
+              f"the device program")
+        check(r["sfc_encode_pool"] > 0,
+              f"{name}: round {i} launched no sfc_encode_pool")
+    check(launches["sfc_encode_pool"] > 0, f"{name}: no pooled launch")
+
+    t0 = time.perf_counter()
+    twin = learn_sfc(sample, Ls, Us, backend="torch", **kw)
+    twin_s = time.perf_counter() - t0
+    check(_result_key(twin) == _result_key(res),
+          f"{name}: the kernel and plain-twin runs of learn_sfc differ")
+
+    best4 = sorted(res.evaluated, key=lambda cy: cy[1])[:4]
+    t0 = time.perf_counter()
+    host = [evaluate_curve(c, sample, Ls, Us, cfg, K, evaluator="batched")
+            for c, _ in best4]
+    host_s = time.perf_counter() - t0
+    check(host == [y for _, y in best4],
+          f"{name}: host batched costs {host} != pooled "
+          f"{[y for _, y in best4]}")
+    anchor, anchor_y = res.evaluated[0]
+    check(anchor == default_curve(sample.shape[1], K, space, depth),
+          f"{name}: the first evaluated curve is not the z-order anchor")
+    check(res.y_best <= anchor_y,
+          f"{name}: learned cost {res.y_best} > z-order {anchor_y}")
+
+    # one more round (the last round's candidates) under the profiler:
+    # its wall time, device busy time and idle share
+    last = [c for c, _ in res.evaluated[-4:]]
+    prof = profile_batch(lambda: evaluate_pool(last, sample, Ls, Us, cfg, K))
+
+    device_s = clock.s["encode"] + clock.s["pack"] + clock.s["program"]
+    out = {
+        "phase": name, "space": space, "depth": depth, "rows": len(data),
+        "sample_rows": int(len(sample)), "queries": int(len(Ls)),
+        "width_scale": width_scale, "page_bytes": cfg.page_bytes, "K": K,
+        "max_iters": max_iters, "evaluations": len(res.evaluated),
+        "rounds": clock.rounds, "y_best": res.y_best,
+        "zorder_cost": anchor_y, "history": res.history,
+        "curve_best_sha256": hashlib.sha256(
+            res.curve_best.to_json().encode()).hexdigest()[:16],
+        "seconds": {"total": total_s, "host_build": clock.s["build"],
+                    "surrogate": clock.s["surrogate"],
+                    "device_eval": device_s,
+                    "device_eval_parts": {k: clock.s[k] for k in
+                                          ("encode", "pack", "program")},
+                    "rest": total_s - device_s - clock.s["build"]
+                    - clock.s["surrogate"]},
+        "twin_run_s": twin_s, "twin_identical": True,
+        "host_batched_s": host_s, "host_batched_equal": True,
+        "peak_device_bytes": int(peak), "launches": launches,
+        "round_profile": prof}
+    emit(out)
+    out["curve"] = res.curve_best
+    out["pools"] = {"first": [c for c, _ in res.evaluated[:8]],
+                    "last": last, "all": [c for c, _ in res.evaluated]}
+    out["sample"] = sample
+    out["n_queries"] = len(Ls)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3: each kernel against its plain twin at the paths' shapes
 # ---------------------------------------------------------------------------
 
 
@@ -265,8 +458,56 @@ def phase_kernels(main_curve, pw_curve) -> dict:
     return out
 
 
+def phase_pool_kernel(smbo_runs: dict) -> dict:
+    """`sfc_encode_pool` against its twin at the SMBO path's shapes: the
+    shared-point launch of the first round (its 8 curves over the whole
+    sample) and the largest per-candidate launch of a 4-curve round (the
+    last split's corners, Q·2^(k-1)·d points each); and at a larger shape,
+    a 16-curve pool over 2^20 shared points."""
+    import numpy as np
+    import torch
+    from repro_torch.core.curve import CurvePool, pack_curve_pool
+    from repro_torch.kernels.sfc_encode.ops import sfc_encode_pool
+    from repro_torch.kernels.sfc_encode.ref import sfc_encode_pool_ref
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    as_dev = lambda a: torch.from_numpy(np.ascontiguousarray(
+        a.astype(np.uint32).view(np.int32))).to(dev)
+    shapes = []
+    for kind, run in smbo_runs.items():
+        sample = run["sample"]
+        d, K = sample.shape[1], run["K"]
+        corners = run["n_queries"] * 2**(K_MAXSPLIT - 1) * d
+        shapes += [(f"{kind}_shared_path", run["pools"]["first"],
+                    as_dev(sample)),
+                   (f"{kind}_per_candidate_path", run["pools"]["last"],
+                    as_dev(rng.integers(0, 2**K, size=(4, corners, d),
+                                        dtype=np.uint64)))]
+    shapes.append(("global_large", smbo_runs["global"]["pools"]["all"][:16],
+                   as_dev(rng.integers(0, 2**32, size=(2**20, 2),
+                                       dtype=np.uint64))))
+    out = {}
+    for shape, curves, x in shapes:
+        pool = pack_curve_pool(curves)
+        pos = torch.from_numpy(pool.pos).to(dev)
+        reg = torch.from_numpy(pool.reg).to(dev)
+        tables = CurvePool(pos=pos, reg=reg, d=pool.d, K=pool.K)
+        P, R, T = pos.shape
+        n = x.shape[-2]
+        nbytes = x.numel() * 4 + P * n * 8 + (pos.numel() + reg.numel()) * 4
+        out[shape] = {
+            "shape": ([P] if x.dim() == 2 else []) + list(x.shape),
+            "K": pool.K, "regions": R,
+            **_hold_kernel(f"sfc_encode_pool[{shape}]",
+                           lambda x: sfc_encode_pool(x, tables),
+                           lambda x: sfc_encode_pool_ref(x, tables), (x,),
+                           nbytes, 3.0 * P * n * T, plain_iters=2)}
+    emit({"phase": "kernels_pool", "sfc_encode_pool": out})
+    return out
+
+
 # ---------------------------------------------------------------------------
-# phases 3 and 4: a served index, held against the plain backend and
+# phases 4 and 5: a served index, held against the plain backend and
 # brute force
 # ---------------------------------------------------------------------------
 
@@ -404,11 +645,8 @@ def _hold_path(name: str, data, index, curve, n_batches: int, seed: int,
     return res
 
 
-def phase_main(osm_rows: int, n_batches: int, curve) -> dict:
+def phase_main(data, n_batches: int, curve) -> dict:
     from repro_torch.core.index import IndexConfig, LMSFCIndex
-    from repro_torch.data.synth import make_dataset
-    t0 = time.perf_counter()
-    data = make_dataset("osm", osm_rows, seed=0)
     t1 = time.perf_counter()
     index = LMSFCIndex.build(data, curve=curve,
                              cfg=IndexConfig(paging="heuristic"))
@@ -416,16 +654,14 @@ def phase_main(osm_rows: int, n_batches: int, curve) -> dict:
     res = _hold_path("main", data, index, curve, n_batches, seed=1,
                      width_scale=0.01, kernel_names=("window_filter", "window_match",
                                    "sfc_encode"))
-    res.update(data_s=t1 - t0, build_s=t2 - t1)
+    res.update(build_s=t2 - t1)
     check(res["cap"] == MAIN_CAP, f"main path cap {res['cap']} != the "
                                   f"kernel phase's {MAIN_CAP}")
     return res
 
 
-def phase_piecewise(nyc_rows: int, n_batches: int, curve) -> dict:
+def phase_piecewise(data, n_batches: int, curve) -> dict:
     from repro_torch.core.index import IndexConfig, LMSFCIndex
-    from repro_torch.data.synth import make_dataset
-    data = make_dataset("nyc", nyc_rows, seed=1)
     index = LMSFCIndex.build(data, curve=curve,
                              cfg=IndexConfig(paging="heuristic"))
     return _hold_path("piecewise", data, index, curve, n_batches, seed=2,
@@ -443,6 +679,8 @@ KERNEL_ROWS = (
      "src/repro/kernels/window_filter/kernel.py:51"),
     ("sfc_encode", "src/repro_torch/csrc/sfc_encode.cu",
      "src/repro/kernels/sfc_encode/kernel.py:107"),
+    ("sfc_encode_pool", "src/repro_torch/csrc/sfc_encode.cu",
+     "src/repro/kernels/sfc_encode/kernel.py:174"),
 )
 
 
@@ -452,6 +690,8 @@ def main(argv=None) -> int:
     ap.add_argument("--nyc-rows", type=int, default=1_000_000)
     ap.add_argument("--batches", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--smbo-iters", type=int, default=10,
+                    help="SMBO iterations of each learn_sfc run")
     args = ap.parse_args(argv)
 
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -459,34 +699,52 @@ def main(argv=None) -> int:
               "(src/repro_torch not found)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
-    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU",
               file=sys.stderr)
         return 2
-    from repro_torch.core.curve import GlobalTheta, PiecewiseCurve
-    from repro_torch.core.theta import default_K
+    from repro_torch.data.synth import make_dataset
 
     phase_setup()
-    main_curve = GlobalTheta.random(np.random.default_rng(args.seed), 2, 32)
-    pw_curve = PiecewiseCurve.random(np.random.default_rng(args.seed + 1), 3,
-                                     default_K(3), depth=2)
+    t0 = time.perf_counter()
+    osm = make_dataset("osm", args.osm_rows, seed=0)
+    nyc = make_dataset("nyc", args.nyc_rows, seed=1)
+    emit({"phase": "data", "osm_rows": len(osm), "nyc_rows": len(nyc),
+          "data_s": time.perf_counter() - t0})
+    smbo = {
+        "global": phase_smbo("smbo_global", osm, K=32, space="global",
+                             depth=1, max_iters=args.smbo_iters,
+                             seed=args.seed, width_scale=0.01),
+        "piecewise": phase_smbo("smbo_piecewise", nyc, K=21,
+                                space="piecewise", depth=2,
+                                max_iters=args.smbo_iters,
+                                seed=args.seed + 1, width_scale=0.05)}
+    main_curve = smbo["global"]["curve"]
+    pw_curve = smbo["piecewise"]["curve"]
     kern = phase_kernels(main_curve, pw_curve)
-    main_res = phase_main(args.osm_rows, args.batches, main_curve)
-    pw_res = phase_piecewise(args.nyc_rows, args.batches, pw_curve)
+    kern["sfc_encode_pool"] = phase_pool_kernel(smbo)
+    main_res = phase_main(osm, args.batches, main_curve)
+    pw_res = phase_piecewise(nyc, args.batches, pw_curve)
 
     rows = []
     for name, source, replaces in KERNEL_ROWS:
-        k = (kern[name]["path"] if name != "sfc_encode"
-             else kern[name]["global_path"])
+        k, path, pw_path = kern[name].get("path"), main_res, pw_res
+        if name == "sfc_encode":
+            k = kern[name]["global_path"]
+        elif name == "sfc_encode_pool":
+            k = kern[name]["global_shared_path"]
+            path, pw_path = smbo["global"], smbo["piecewise"]
+        check(path["launches"][name] > 0 and pw_path["launches"][name] > 0,
+              f"{name} was not launched on its paths")
         rows.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": main_res["launches"][name],
+            "replaces": replaces, "path": path["phase"],
+            "launches": path["launches"][name],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None,
-            "piecewise_launches": pw_res["launches"][name]})
+            "piecewise_launches": pw_path["launches"][name]})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

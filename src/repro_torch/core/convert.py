@@ -2,14 +2,15 @@
 
 The reference package's state is numpy arrays plus a curve's JSON, so an
 index built (or a curve learned) there can be served here, and the reverse,
-without importing either package into the other.
+without importing either package into the other.  A candidate pool packed
+by the reference (`pack_curve_pool`) crosses as its two int32 arrays.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from . import pgm as pgm_mod
-from .curve import curve_from_json
+from .curve import CurvePool, curve_from_json
 from .index import IndexConfig, LMSFCIndex
 from .serve import ServingArrays, upload_serving_arrays
 
@@ -44,3 +45,18 @@ def serving_arrays_from_numpy(points, page_zmin, page_zmax, page_mbr,
         page_mbr=np.asarray(page_mbr, dtype=np.int32),
         page_size=np.asarray(page_size, dtype=np.int32))
     return upload_serving_arrays(host, device)
+
+
+def curve_pool_from_numpy(pos, reg, d: int, K: int) -> CurvePool:
+    """A `CurvePool` from packed layouts: ``pos`` (P, R, T) and ``reg``
+    (P, M) int32 with T = d*K, as the reference's `pack_curve_pool` makes
+    them."""
+    pos = np.ascontiguousarray(pos, dtype=np.int32)
+    reg = np.ascontiguousarray(reg, dtype=np.int32)
+    if pos.ndim != 3 or reg.ndim != 2 or len(pos) != len(reg):
+        raise ValueError(f"need pos (P, R, T) and reg (P, M); got "
+                         f"{pos.shape} and {reg.shape}")
+    if pos.shape[2] != d * K:
+        raise ValueError(f"pos has {pos.shape[2]} bits per region; "
+                         f"d*K = {d * K}")
+    return CurvePool(pos=pos, reg=reg, d=int(d), K=int(K))

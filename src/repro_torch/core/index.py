@@ -83,12 +83,15 @@ class LMSFCIndex:
     @staticmethod
     def build(data: np.ndarray, theta=None, cfg: IndexConfig = None,
               workload=None, K: int = None, *,
-              curve=None) -> "LMSFCIndex":
+              curve=None, z: np.ndarray = None) -> "LMSFCIndex":
         """data: (n, d) non-negative ints < 2^K, duplicate-free.
 
         The SFC is given as `curve` (any `MonotonicCurve`, a legacy `Theta`,
         or curve JSON); `theta=` remains as an alias for pre-curve call
-        sites.  Default: z-order over K = default_K(d) bits.
+        sites.  Default: z-order over K = default_K(d) bits.  `z`, when
+        given, is the curve's uint64 keys of `data` (n,) computed elsewhere
+        (the SMBO evaluator encodes a whole pool in one device launch); it
+        must equal ``curve.encode_np(data)``, and the index is then the same.
         """
         cfg = cfg or IndexConfig()
         data = np.asarray(data, dtype=np.uint64)
@@ -105,7 +108,13 @@ class LMSFCIndex:
         if curve.d != d:
             raise ValueError(f"curve.d={curve.d} != data dimension {d}")
 
-        z = curve.encode_np(data)
+        if z is None:
+            z = curve.encode_np(data)
+        else:
+            z = np.asarray(z, dtype=np.uint64)
+            if z.shape != data.shape[:1]:
+                raise ValueError(f"z has shape {z.shape}; data has "
+                                 f"{len(data)} rows")
         order = np.argsort(z, kind="stable")
         xs = data[order]
         zs = z[order]

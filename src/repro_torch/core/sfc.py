@@ -139,6 +139,27 @@ def encode_table_torch(x: torch.Tensor, pos: torch.Tensor,
     return torch.stack([i32_of(z >> 32), i32_of(z)], dim=-1)
 
 
+def encode_pool_torch(x: torch.Tensor, pos: torch.Tensor,
+                      reg: torch.Tensor) -> torch.Tensor:
+    """Data-driven encode under every curve of a pool; the plain-torch twin
+    of the reference's `encode_z64_dyn` with a pool axis, and the contract
+    of the CUDA `sfc_encode_pool` kernel.
+
+    x:   (n, d) int32 points shared by every curve, or (P, n, d) int32 with
+         one point set per curve
+    pos: (P, R, T) and reg (P, M) integer — `pack_curve_pool` layouts
+
+    Returns (P, n, 2) int32 Z64; row p is `encode_table_torch` under curve
+    p's tables (rows of `pos` past a curve's own region count are never
+    selected, since its region code stays below that count)."""
+    P = pos.shape[0]
+    if x.dim() == 3 and x.shape[0] != P:
+        raise ValueError(f"x has {x.shape[0]} point sets for {P} curves")
+    return torch.stack([encode_table_torch(x[p] if x.dim() == 3 else x,
+                                           pos[p], reg[p])
+                        for p in range(P)])
+
+
 def encode_torch(x: torch.Tensor, theta: Theta) -> torch.Tensor:
     """x: (..., d) int32 (unsigned semantics, values < 2^K) -> (..., 2) Z64.
     Same contract as the reference's static ≤64-step chain `encode_jax`."""

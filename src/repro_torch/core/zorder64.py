@@ -111,3 +111,32 @@ def z64_add(a, b):
     lo = alo + blo
     carry = lo >> 32
     return torch.stack([i32_of(ahi + bhi + carry), i32_of(lo)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# order-preserving int64 keys and search over a sorted Z64 array
+# ---------------------------------------------------------------------------
+
+
+def z64_key(z: torch.Tensor) -> torch.Tensor:
+    """(..., 2) int32 Z64 -> (...,) int64 holding the 64-bit value minus
+    2^63, so signed int64 order is the unsigned Z64 order (the all-ones
+    +inf padding maps to the int64 maximum)."""
+    hi = (z[..., 0] ^ SIGN).to(torch.int64)       # hi_u - 2^31
+    return hi * 2**32 + (z[..., 1].to(torch.int64) & MASK32)
+
+
+def z64_searchsorted(keys: torch.Tensor, query: torch.Tensor,
+                     side: str = "left") -> torch.Tensor:
+    """Like ``np.searchsorted(keys, query, side)`` for Z64, exact.
+
+    keys: (n, 2) int32 sorted ascending (unsigned), or (B, n, 2) with one
+    sorted row per batch entry; query: (..., 2) int32, or (B, ..., 2) when
+    the keys are batched.  Returns int64 indices in [0, n]."""
+    if side not in ("left", "right"):
+        raise ValueError(f"side must be 'left' or 'right'; got {side!r}")
+    k, q = z64_key(keys), z64_key(query)
+    lead = q.shape
+    q = q.reshape(-1) if keys.dim() == 2 else q.reshape(k.shape[0], -1)
+    return torch.searchsorted(k.contiguous(), q.contiguous(),
+                              right=side == "right").reshape(lead)

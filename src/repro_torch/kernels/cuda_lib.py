@@ -27,7 +27,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"window_filter": 0, "window_match": 0, "sfc_encode": 0}
+LAUNCHES = {"window_filter": 0, "window_match": 0, "sfc_encode": 0,
+            "sfc_encode_pool": 0}
 
 _VP, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -37,6 +38,9 @@ _SIGNATURES = {
     # x, pos, reg, out, n, d, K, R, M, number of SMs, stream
     "sfc_encode_launch": (_VP, _VP, _VP, _VP, _I64, _INT, _INT, _INT, _INT,
                           _INT, _VP),
+    # x, x_stride, pos, reg, out, n, d, K, R, M, P, number of SMs, stream
+    "sfc_encode_pool_launch": (_VP, _I64, _VP, _VP, _VP, _I64, _INT, _INT,
+                               _INT, _INT, _INT, _INT, _VP),
 }
 
 _lib = None

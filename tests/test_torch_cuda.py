@@ -13,13 +13,15 @@ import torch
 
 from repro_torch.core import curve as tc
 from repro_torch.core import serve as tsv
+from repro_torch.core.cost import evaluate_pool
 from repro_torch.core.index import IndexConfig, LMSFCIndex
 from repro_torch.core.theta import default_K
 from repro_torch.data.synth import make_dataset
 from repro_torch.data.workload import make_workload
 from repro_torch.kernels import cuda_lib
-from repro_torch.kernels.sfc_encode.ops import sfc_encode
-from repro_torch.kernels.sfc_encode.ref import sfc_encode_ref
+from repro_torch.kernels.sfc_encode.ops import sfc_encode, sfc_encode_pool
+from repro_torch.kernels.sfc_encode.ref import (sfc_encode_pool_ref,
+                                                sfc_encode_ref)
 from repro_torch.kernels.window_filter.ops import window_filter, window_match
 from repro_torch.kernels.window_filter.ref import (window_filter_ref,
                                                    window_match_ref)
@@ -100,3 +102,56 @@ def test_served_batches_match_host_twins(cuda_device, family):
             for g, w in zip(got, want):
                 assert g.device.type == "cuda"
                 assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("d,depths", [(2, (0, 0, 1, 2)), (3, (2, 0, 1)),
+                                      (4, (2, 1, 0))])
+def test_sfc_encode_pool_kernel_matches_twin(cuda_device, d, depths):
+    """A pool mixing global curves (depth 0) with piecewise ones of other
+    depths, points shared (stride 0) and per candidate.  At d = 4 a
+    depth-2 curve has 256 regions: the 64 KB table is read from global
+    memory instead of shared memory."""
+    K = 32 if d == 2 else default_K(d)
+    curves = [tc.random_curve(np.random.default_rng(10 + i), d, K,
+                              family="piecewise" if dp else "global",
+                              depth=max(dp, 1))
+              for i, dp in enumerate(depths)]
+    pool = tc.pack_curve_pool(curves)
+    rng = np.random.default_rng(d)
+    shared = _i32(rng.integers(0, 2**K, size=(3001, d), dtype=np.uint64))
+    own = _i32(rng.integers(0, 2**K, size=(len(curves), 777, d),
+                            dtype=np.uint64))
+    for xs in (shared, own):
+        x = torch.from_numpy(xs)
+        before = cuda_lib.LAUNCHES["sfc_encode_pool"]
+        got = sfc_encode_pool(x.to(cuda_device), pool)
+        torch.cuda.synchronize()
+        assert cuda_lib.LAUNCHES["sfc_encode_pool"] == before + 1
+        want = sfc_encode_pool_ref(x, pool)
+        assert torch.equal(got.cpu(), want)
+        for p, c in enumerate(curves):
+            assert torch.equal(want[p], sfc_encode_ref(
+                x if x.dim() == 2 else x[p], c))
+
+
+@pytest.mark.parametrize("family,depth", [("global", 1), ("piecewise", 2)])
+def test_evaluate_pool_on_card_matches_host(cuda_device, family, depth):
+    """The pooled program on the card (kernel and twin) equals the same
+    program on the host, and the numpy loop."""
+    data = make_dataset("osm", 4000, seed=3)
+    Ls, Us = make_workload(data, 24, seed=1, width_scale=0.05)
+    cfg = IndexConfig(paging="heuristic", page_bytes=1024)
+    curves = [tc.random_curve(np.random.default_rng(i), 2, 32, family=family,
+                              depth=depth) for i in range(5)]
+    before = cuda_lib.LAUNCHES["sfc_encode_pool"]
+    got = evaluate_pool(curves, data, Ls, Us, cfg, engine="torch")
+    assert cuda_lib.LAUNCHES["sfc_encode_pool"] == before + 11
+    twin = evaluate_pool(curves, data, Ls, Us, cfg, engine="torch",
+                         backend="torch")
+    host = evaluate_pool(curves, data, Ls, Us, cfg, engine="torch",
+                         device="cpu")
+    loop = evaluate_pool(curves, data, Ls, Us, cfg, engine="np",
+                         device="cpu")
+    np.testing.assert_array_equal(got, host)
+    np.testing.assert_array_equal(twin, host)
+    np.testing.assert_array_equal(loop, host)

@@ -13,12 +13,15 @@ import torch
 from repro.core import curve as rc
 from repro.core.theta import default_K
 from repro.kernels.sfc_encode.ops import sfc_encode as r_sfc_encode
+from repro.kernels.sfc_encode.ops import sfc_encode_pool as r_sfc_encode_pool
 from repro.kernels.window_filter.ops import window_filter as r_window_filter
 from repro.kernels.window_filter.ops import window_match as r_window_match
 from repro_torch.core import curve as tc
+from repro_torch.core.convert import curve_pool_from_numpy
 from repro_torch.kernels import cuda_lib
-from repro_torch.kernels.sfc_encode.ops import sfc_encode
-from repro_torch.kernels.sfc_encode.ref import sfc_encode_ref
+from repro_torch.kernels.sfc_encode.ops import sfc_encode, sfc_encode_pool
+from repro_torch.kernels.sfc_encode.ref import (sfc_encode_pool_ref,
+                                                sfc_encode_ref)
 from repro_torch.kernels.window_filter.ops import window_filter, window_match
 from repro_torch.kernels.window_filter.ref import (window_filter_ref,
                                                    window_match_ref)
@@ -94,6 +97,67 @@ def test_sfc_encode_twin_matches_reference(d, family, depth):
         np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _mixed_pool(d, K):
+    """The reference's mixed SMBO pool shape (tests/test_kernels.py): three
+    global curves and three piecewise curves of depth 1 and 2."""
+    curves = [rc.random_curve(np.random.default_rng(i), d, K)
+              for i in range(3)]
+    curves += [rc.random_curve(np.random.default_rng(40 + i), d, K,
+                               family="piecewise", depth=1 + i % 2)
+               for i in range(3)]
+    return curves
+
+
+@pytest.mark.parametrize("d,K", [(2, 16), (3, 12), (2, 32)])
+def test_sfc_encode_pool_twin_matches_reference(d, K):
+    """The pooled twin equals the reference's pooled encode (jnp oracle and
+    Pallas in interpret mode) on shared points, fed either the reference's
+    packed pool carried across or the port's own curves; with one point
+    set per curve, row p equals curve p's single encode."""
+    ref_curves = _mixed_pool(d, K)
+    curves = [tc.curve_from_json(c.to_json()) for c in ref_curves]
+    rng = np.random.default_rng(d * 100 + K)
+    xs = _i32(rng.integers(0, 2**K, size=(900, d), dtype=np.uint64))
+    xs[:4] = _i32(np.full((4, d), 2**K - 1, dtype=np.uint64))
+    want = np.asarray(r_sfc_encode_pool(jnp.asarray(xs), ref_curves,
+                                        backend="xla"))
+    pallas = np.asarray(r_sfc_encode_pool(jnp.asarray(xs), ref_curves,
+                                          backend="pallas", block_n=256,
+                                          interpret=True))
+    np.testing.assert_array_equal(pallas, want)
+    rpool = rc.pack_curve_pool(ref_curves)
+    carried = curve_pool_from_numpy(rpool.pos, rpool.reg, d, K)
+    xt = torch.from_numpy(xs)
+    for got in (sfc_encode_pool(xt, carried), sfc_encode_pool(xt, curves),
+                sfc_encode_pool_ref(xt, carried),
+                sfc_encode_pool(xt, carried, backend="torch")):
+        assert got.dtype == torch.int32 and tuple(got.shape) == (6, 900, 2)
+        np.testing.assert_array_equal(got.numpy(), want)
+    own = _i32(rng.integers(0, 2**K, size=(6, 333, d), dtype=np.uint64))
+    got = sfc_encode_pool(torch.from_numpy(own), carried).numpy()
+    for p, c in enumerate(ref_curves):
+        np.testing.assert_array_equal(
+            got[p], np.asarray(r_sfc_encode(jnp.asarray(own[p]), c,
+                                            backend="xla")))
+    with pytest.raises(ValueError, match="point sets"):
+        sfc_encode_pool(torch.from_numpy(own[:5]), carried)
+
+
+def test_curve_pool_from_numpy_is_the_ports_packing():
+    ref_curves = _mixed_pool(3, 12)
+    rpool = rc.pack_curve_pool(ref_curves)
+    carried = curve_pool_from_numpy(rpool.pos, rpool.reg, 3, 12)
+    own = tc.pack_curve_pool([tc.curve_from_json(c.to_json())
+                              for c in ref_curves])
+    np.testing.assert_array_equal(carried.pos, own.pos)
+    np.testing.assert_array_equal(carried.reg, own.reg)
+    assert (carried.d, carried.K, len(carried)) == (3, 12, 6)
+    with pytest.raises(ValueError, match="bits per region"):
+        curve_pool_from_numpy(rpool.pos, rpool.reg, 2, 12)
+    with pytest.raises(ValueError, match="need pos"):
+        curve_pool_from_numpy(rpool.pos[0], rpool.reg, 3, 12)
+
+
 def test_wrappers_refuse_unknown_backends_and_devices():
     """No fallback: a tensor that is neither on the CPU nor on a CUDA
     device is refused, never handed to the plain twin."""
@@ -104,7 +168,8 @@ def test_wrappers_refuse_unknown_backends_and_devices():
     curve = tc.default_curve(2, 32)
     for call in (lambda: window_filter(pts, rect, size),
                  lambda: window_match(pts, rect, size),
-                 lambda: sfc_encode(x, curve)):
+                 lambda: sfc_encode(x, curve),
+                 lambda: sfc_encode_pool(x, [curve, curve])):
         with pytest.raises(ValueError, match="CUDA tensor"):
             call()
     cpu = torch.zeros((2, 2, 8), dtype=torch.int32)
@@ -112,6 +177,8 @@ def test_wrappers_refuse_unknown_backends_and_devices():
         window_filter(cpu, cpu[:, :, :2], cpu[:, 0, 0], backend="pallas")
     with pytest.raises(ValueError, match="backend"):
         sfc_encode(cpu[0], curve, backend="xla")
+    with pytest.raises(ValueError, match="backend"):
+        sfc_encode_pool(cpu[0], [curve], backend="pallas")
 
 
 def test_library_path_is_keyed_on_the_sources():
