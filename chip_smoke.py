@@ -24,12 +24,22 @@ no result.  Phases, each printing one JSON line:
    backend on the card and against brute force;
 5. piecewise path: a 1M-row NYC-like index (d=3) under the learned
    piecewise curve, held the same way;
-6. launch check: every kernel ran on each path.
+6. kernels_flash: the flash attention kernel against its plain twin
+   `mha_ref` on the card (atol = rtol = 2e-5 in float32, 2e-2 in bf16),
+   with times, bounds and `scaled_dot_product_attention` as a yardstick,
+   at the LM path's shape and the reference tests' shapes;
+7. lm_serve: qwen3-4b at its published widths and full depth (36 layers)
+   on seeded random weights serves 4 requests of 2,048 seeded random
+   tokens: one prefill through the flash kernel, the caches stitched into
+   a state of 2,048 + 32 slots, 32 greedy decode steps; the prefill is
+   held against the plain-torch attention backend on the card;
+8. launch check: every kernel ran on each path.
 
 The line before the last lists the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero without
-that line.  ``--osm-rows``/``--nyc-rows``/``--batches``/``--smbo-iters``
-cut the depth for a quick run; the defaults are the full run.
+that line.  ``--osm-rows``/``--nyc-rows``/``--batches``/``--smbo-iters``/
+``--lm-layers``/``--decode-steps`` cut the depth for a quick run; the
+defaults are the full run.
 """
 from __future__ import annotations
 
@@ -46,6 +56,8 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 INT_OPS_PER_S = 67e12          # H100 SXM non-tensor 32-bit peak (data sheet)
+FLOPS_PER_S = {"float32": 67e12,      # non-tensor float32 (data sheet)
+               "bfloat16": 989e12}    # dense bf16 tensor cores (data sheet)
 BATCH = 256                    # queries per served batch
 Q_CHUNK = 16
 K_MAXSPLIT = 4
@@ -85,20 +97,30 @@ def time_ms(fn, iters: int = 20, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, iters: int = 20):
-    """Mean device time per call from `torch.profiler` (the kernels' self
-    time, summed), or None when the profiler recorded no device time."""
+def device_ms(fn, iters: int = 20) -> tuple:
+    """Device time from `torch.profiler` over `iters` calls (the kernels'
+    self time, summed) per call, or None when the profiler recorded no
+    device time; the device events it recorded per call; and the mean
+    time of one recorded event.  A window that recorded no device event
+    at all is run again, up to three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in _device_events(prof))
-    return total_us / iters / 1e3 if total_us > 0 else None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = _device_events(prof)
+        if events:
+            break
+    total_us = sum(e.self_device_time_total for e in events)
+    count = sum(e.count for e in events)
+    if total_us <= 0:
+        return None, count / iters, None
+    return total_us / iters / 1e3, count / iters, total_us / count / 1e3
 
 
 def _device_events(prof) -> list:
@@ -111,14 +133,21 @@ def _device_events(prof) -> list:
             and e.self_device_time_total > 0]
 
 
-def kernel_times(fn, iters: int = 20) -> dict:
+def kernel_times(fn, iters: int = 20, one_launch: bool = False) -> dict:
     """Device time per call (profiler; CUDA events over back-to-back calls
     when the profiler sees nothing) and the back-to-back wall time, which
-    includes the host's launch overhead when that dominates."""
+    includes the host's launch overhead when that dominates.  A long run
+    of this script can lose some calls' device records (fewer than one
+    event per call for a one-kernel wrapper), so for a wrapper that
+    launches exactly one kernel (`one_launch`) the time is the mean of the
+    recorded launches."""
     wall = time_ms(fn, iters=iters)
-    dev = device_ms(fn, iters=iters)
+    dev, per_call, per_event = device_ms(fn, iters=iters)
+    if one_launch and per_event is not None:
+        dev = per_event
     return {"ms": dev if dev is not None else wall, "wall_ms": wall,
-            "timing": "profiler" if dev is not None else "events"}
+            "timing": "profiler" if dev is not None else "events",
+            "device_events_per_call": per_call}
 
 
 def profile_batch(fn) -> dict:
@@ -403,7 +432,8 @@ def _hold_kernel(name: str, fn, ref, args, nbytes: float, ops: float,
     check(err == 0, f"{name} disagrees with its plain twin (max {err})")
     b_ms, b_by = bound(nbytes, ops)
     plain = kernel_times(lambda: ref(*args), iters=plain_iters)
-    return {"max_abs_err": err, **kernel_times(lambda: fn(*args)),
+    return {"max_abs_err": err,
+            **kernel_times(lambda: fn(*args), one_launch=True),
             "plain_ms": plain["ms"], "plain_wall_ms": plain["wall_ms"],
             "bound_ms": b_ms, "bound_by": b_by}
 
@@ -670,6 +700,222 @@ def phase_piecewise(data, n_batches: int, curve) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 6: flash attention against its plain twin
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "qwen3-4b"
+LM_BATCH = 4                   # requests per prefill
+LM_PROMPT = 2048               # tokens per request
+FLASH_SHAPES = (
+    # name, B, H, KH, S, dh, dtype, causal, window
+    ("lm_serve", LM_BATCH, 32, 8, LM_PROMPT, 128, "bfloat16", True, 0),
+    ("mqa_f32_causal", 1, 4, 1, 256, 128, "float32", True, 0),
+    ("mqa_f32_full", 1, 4, 1, 256, 128, "float32", False, 0),
+    ("mqa_bf16_causal", 1, 4, 1, 256, 128, "bfloat16", True, 0),
+    ("mqa_bf16_full", 1, 4, 1, 256, 128, "bfloat16", False, 0),
+    ("window64", 1, 2, 2, 512, 64, "float32", True, 64),
+    ("window192", 1, 2, 2, 512, 64, "float32", True, 192),
+    ("reduced_dh32", 2, 4, 4, 256, 32, "float32", True, 0),
+    ("ragged_s1000", 1, 8, 2, 1000, 128, "bfloat16", True, 0),
+)
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def visible_pairs(S: int, causal: bool, window: int) -> int:
+    """(row, col) pairs one head's softmax sees under the masks."""
+    import numpy as np
+    rows = np.arange(S, dtype=np.int64)
+    hi = rows + 1 if causal else np.full(S, S, dtype=np.int64)
+    lo = np.maximum(rows - window + 1, 0) if window > 0 else 0
+    return int(np.sum(hi - lo))
+
+
+def flash_bound(B, H, KH, S, dh, dtype: str, causal, window) -> dict:
+    """Least time for the attention: 4*dh flops per visible pair and head
+    over the peak for the input type (bf16: tensor cores), against q, k, v
+    and o moved once over the memory rate."""
+    esize = 4 if dtype == "float32" else 2
+    nbytes = (2 * B * H + 2 * B * KH) * S * dh * esize
+    flops = 4.0 * dh * B * H * visible_pairs(S, causal, window)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FLOPS_PER_S[dtype] * 1e3
+    return {"flops": flops, "bytes": nbytes,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "fp32_nontensor_ms": flops / FLOPS_PER_S["float32"] * 1e3}
+
+
+def phase_kernels_flash(seed: int) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    for name, B, H, KH, S, dh, dtype, causal, window in FLASH_SHAPES:
+        dt = getattr(torch, dtype)
+        q, k, v = (torch.randn(B, h, S, dh, generator=gen, device="cuda")
+                   .to(dt) for h in (H, KH, KH))
+        kw = dict(causal=causal, window=window)
+        got = flash_attention(q, k, v, **kw)
+        want = mha_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[dtype]
+        err = (got.float() - want.float()).abs().max().item()
+        check(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
+              f"flash_attention[{name}] disagrees with mha_ref (max abs "
+              f"{err}, tolerance {tol})")
+        del got, want
+        mask = None
+        if window > 0:
+            r = torch.arange(S, device="cuda")
+            mask = (r[None, :] <= r[:, None]) & (r[None, :] >= r[:, None]
+                                                 - window + 1)
+        sdpa = lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True)
+        plain = kernel_times(lambda: mha_ref(q, k, v, **kw), iters=5)
+        lib = kernel_times(sdpa)
+        out[name] = {"shape": [B, H, KH, S, dh], "dtype": dtype,
+                     "causal": causal, "window": window, "tolerance": tol,
+                     "max_abs_err": err,
+                     **kernel_times(lambda: flash_attention(q, k, v, **kw),
+                                    one_launch=True),
+                     "plain_ms": plain["ms"], "plain_wall_ms": plain["wall_ms"],
+                     "library_ms": lib["ms"],
+                     **flash_bound(B, H, KH, S, dh, dtype, causal, window)}
+        del q, k, v
+    emit({"phase": "kernels_flash", "flash_attention": out})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7: qwen3-4b prefill + decode serving on the card
+# ---------------------------------------------------------------------------
+
+
+def phase_lm_serve(seed: int, n_layers: int, decode_steps: int) -> dict:
+    """Seeded random weights at the published widths; a prefill of
+    LM_BATCH x LM_PROMPT seeded random tokens through the flash kernel
+    (counts reset just before and read just after), then greedy decode
+    steps; the same prefill through the plain-torch attention backend,
+    held at the reference's bf16 bar for two computations of the same
+    logits (atol 0.15, rtol 0.1) with equal greedy first tokens."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models.transformer import (init_decode_state,
+                                                init_model, param_bytes)
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    cfg = get_arch(LM_ARCH)
+    if n_layers != cfg.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    B, S, T = LM_BATCH, LM_PROMPT, LM_PROMPT + decode_steps
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_model(cfg, seed=seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = param_bytes(params)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                           device="cuda")
+    batch = {"tokens": tokens}
+    prefill = make_prefill_step(cfg, ShapeConfig("lm_prefill", S, B,
+                                                 "prefill"))
+    decode = make_decode_step(cfg, ShapeConfig("lm_decode", T, B, "decode"))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t
+
+    warm_s = timed(lambda: prefill(params, batch))[1]   # cuBLAS, allocator
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    (last, caches), prefill_s = timed(lambda: prefill(params, batch))
+    launches = dict(cuda_lib.LAUNCHES)
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"lm_serve: {launches['flash_attention']} flash launches per "
+          f"prefill, expected {cfg.n_layers}")
+    check(last.shape == (B, 1, cfg.vocab_padded),
+          f"lm_serve: prefill logits {tuple(last.shape)}")
+    check(bool(torch.isfinite(last.float()).all()),
+          "lm_serve: non-finite prefill logits")
+
+    state = init_decode_state(cfg, T, B)
+    for kv in ("k", "v"):
+        state[kv][:, :, :, :S] = caches[kv]
+    cache_bytes = param_bytes(state)
+    del caches
+    nxt = last[:, 0].argmax(-1)
+    first = nxt.clone()
+    step_s, generated = [], [nxt]
+    for i in range(decode_steps):
+        (lg, state), s = timed(lambda: decode(
+            params, {"tokens": nxt[:, None], "cur_len": S + i}, state))
+        check(bool(torch.isfinite(lg.float()).all()),
+              f"lm_serve: non-finite logits at decode step {i}")
+        nxt = lg[:, 0].argmax(-1)
+        generated.append(nxt)
+        step_s.append(s)
+    peak = torch.cuda.max_memory_allocated()
+    # one more decode step under the profiler (rewriting the last slot)
+    decode_prof = profile_batch(lambda: decode(
+        params, {"tokens": nxt[:, None], "cur_len": T - 1}, state))
+    del state
+
+    prof = profile_batch(lambda: prefill(params, batch))
+
+    twin = make_prefill_step(cfg, ShapeConfig("lm_prefill", S, B, "prefill"),
+                             backend="torch")
+    (t_last, t_caches), twin_s = timed(lambda: twin(params, batch))
+    del t_caches
+    a, b = last[:, 0].float(), t_last[:, 0].float()
+    diff = (a - b).abs()
+    max_abs = diff.max().item()
+    rel_l2 = ((a - b).norm() / b.norm()).item()
+    within = bool(torch.allclose(a, b, atol=0.15, rtol=0.1))
+    same_first = bool(torch.equal(first, b.argmax(-1)))
+    check(within, f"lm_serve: kernel and torch-backend prefill logits "
+                  f"differ past atol 0.15 / rtol 0.1 (max abs {max_abs}, "
+                  f"rel L2 {rel_l2})")
+    check(same_first, f"lm_serve: greedy first tokens differ "
+                      f"({first.tolist()} vs {b.argmax(-1).tolist()})")
+
+    decode_s = sum(step_s)
+    res = {
+        "phase": "lm_serve", "arch": cfg.name, "n_layers": cfg.n_layers,
+        "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+        "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+        "vocab_padded": cfg.vocab_padded, "requests": B,
+        "prompt_tokens": S, "decode_steps": decode_steps,
+        "param_count": cfg.param_count(), "weight_bytes": weight_bytes,
+        "kv_cache_bytes": cache_bytes, "peak_device_bytes": int(peak),
+        "init_s": init_s, "warmup_prefill_s": warm_s,
+        "prefill_s": prefill_s, "prefill_tokens_per_s": B * S / prefill_s,
+        "decode_s_per_step": decode_s / max(decode_steps, 1),
+        "decode_step_s": step_s,
+        "decode_tokens_per_s": B * decode_steps / decode_s
+        if decode_steps else None,
+        "launches": launches, "prefill_profile": prof,
+        "decode_profile": decode_prof,
+        "torch_backend_prefill_s": twin_s,
+        "vs_torch_backend": {"max_abs": max_abs, "rel_l2": rel_l2,
+                             "atol": 0.15, "rtol": 0.1,
+                             "within": within,
+                             "same_greedy_first_token": same_first},
+        "greedy_tokens": torch.stack(generated, 1).tolist()}
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 
 KERNEL_ROWS = (
@@ -681,6 +927,8 @@ KERNEL_ROWS = (
      "src/repro/kernels/sfc_encode/kernel.py:107"),
     ("sfc_encode_pool", "src/repro_torch/csrc/sfc_encode.cu",
      "src/repro/kernels/sfc_encode/kernel.py:174"),
+    ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention/kernel.py:87"),
 )
 
 
@@ -692,6 +940,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--smbo-iters", type=int, default=10,
                     help="SMBO iterations of each learn_sfc run")
+    ap.add_argument("--lm-layers", type=int, default=36,
+                    help="layers of the served qwen3-4b (36 = full depth)")
+    ap.add_argument("--decode-steps", type=int, default=32)
     args = ap.parse_args(argv)
 
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -726,25 +977,35 @@ def main(argv=None) -> int:
     kern["sfc_encode_pool"] = phase_pool_kernel(smbo)
     main_res = phase_main(osm, args.batches, main_curve)
     pw_res = phase_piecewise(nyc, args.batches, pw_curve)
+    del osm, nyc
+    kern["flash_attention"] = phase_kernels_flash(args.seed)
+    lm = phase_lm_serve(args.seed, args.lm_layers, args.decode_steps)
 
     rows = []
     for name, source, replaces in KERNEL_ROWS:
         k, path, pw_path = kern[name].get("path"), main_res, pw_res
-        if name == "sfc_encode":
+        library_ms = None
+        if name == "flash_attention":
+            k, path, pw_path = kern[name]["lm_serve"], lm, None
+            library_ms = k["library_ms"]
+        elif name == "sfc_encode":
             k = kern[name]["global_path"]
         elif name == "sfc_encode_pool":
             k = kern[name]["global_shared_path"]
             path, pw_path = smbo["global"], smbo["piecewise"]
-        check(path["launches"][name] > 0 and pw_path["launches"][name] > 0,
+        check(path["launches"][name] > 0 and (
+            pw_path is None or pw_path["launches"][name] > 0),
               f"{name} was not launched on its paths")
-        rows.append({
+        row = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "path": path["phase"],
             "launches": path["launches"][name],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": k["bound_by"], "library_ms": None,
-            "piecewise_launches": pw_path["launches"][name]})
+            "bound_by": k["bound_by"], "library_ms": library_ms}
+        if pw_path is not None:
+            row["piecewise_launches"] = pw_path["launches"][name]
+        rows.append(row)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

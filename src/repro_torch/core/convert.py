@@ -4,13 +4,16 @@ The reference package's state is numpy arrays plus a curve's JSON, so an
 index built (or a curve learned) there can be served here, and the reverse,
 without importing either package into the other.  A candidate pool packed
 by the reference (`pack_curve_pool`) crosses as its two int32 arrays.
+An LM's parameter tree crosses as a nested dict of numpy arrays.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from . import pgm as pgm_mod
 from .curve import CurvePool, curve_from_json
+from .device import resolve_device
 from .index import IndexConfig, LMSFCIndex
 from .serve import ServingArrays, upload_serving_arrays
 
@@ -60,3 +63,29 @@ def curve_pool_from_numpy(pos, reg, d: int, K: int) -> CurvePool:
         raise ValueError(f"pos has {pos.shape[2]} bits per region; "
                          f"d*K = {d * K}")
     return CurvePool(pos=pos, reg=reg, d=int(d), K=int(K))
+
+
+def _tensor_from_numpy(a) -> torch.Tensor:
+    """bfloat16 arrays (the `ml_dtypes` dtype `np.asarray` gives for a JAX
+    bf16 array, which `torch.from_numpy` refuses) cross as their 16-bit
+    patterns, recognised by dtype name so that no `ml_dtypes` import is
+    needed; other dtypes cross as they are."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(a).view(np.uint16).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def lm_params_from_numpy(tree, device=None) -> dict:
+    """The port's parameter dict from the reference's param tree given as
+    nested dicts of numpy arrays (same keys, same shapes, layers stacked on
+    the leading axis), on `device` (CUDA unless the caller asks for the
+    CPU), bit for bit."""
+    dev = resolve_device(device)
+
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        return _tensor_from_numpy(t).to(dev)
+    return conv(tree)

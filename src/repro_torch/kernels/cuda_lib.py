@@ -28,7 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {"window_filter": 0, "window_match": 0, "sfc_encode": 0,
-            "sfc_encode_pool": 0}
+            "sfc_encode_pool": 0, "flash_attention": 0}
 
 _VP, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -41,6 +41,9 @@ _SIGNATURES = {
     # x, x_stride, pos, reg, out, n, d, K, R, M, P, number of SMs, stream
     "sfc_encode_pool_launch": (_VP, _I64, _VP, _VP, _VP, _I64, _INT, _INT,
                                _INT, _INT, _INT, _INT, _VP),
+    # q, k, v, o, BH, BKH, S, dh, causal, window, dtype code, stream
+    "flash_attention_launch": (_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
+                               _INT, _INT, _INT, _VP),
 }
 
 _lib = None
@@ -136,10 +139,15 @@ def launch(name: str, *args) -> None:
 
 def check_cuda_int32(name: str, t: torch.Tensor, ndim: int) -> None:
     """Raise unless `t` is a contiguous int32 CUDA tensor of rank `ndim`."""
+    check_cuda(name, t, torch.int32, ndim)
+
+
+def check_cuda(name: str, t: torch.Tensor, dtype, ndim: int) -> None:
+    """Raise unless `t` is a contiguous `dtype` CUDA tensor of rank `ndim`."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor; got {t.device}")
-    if t.dtype != torch.int32:
-        raise TypeError(f"{name} must be int32; got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}; got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name} must have rank {ndim}; got {tuple(t.shape)}")
     if not t.is_contiguous():

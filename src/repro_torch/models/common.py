@@ -1,0 +1,135 @@
+"""Shared model machinery: seeded dense init, stacked-layer init, norms,
+activations, rotary embeddings (incl. 3-section M-RoPE).
+
+Parameters are plain dicts of tensors shaped like the reference's param
+tree.  The reference's PartitionSpec trees (`with_spec`, the spec half of
+`stack_init`) have no counterpart: the port runs on one card.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+# ---------------------------------------------------------------------------
+# param builders
+# ---------------------------------------------------------------------------
+
+
+def dense(gen: torch.Generator, d_in: int, d_out: int,
+          dtype=torch.bfloat16, scale=None) -> torch.Tensor:
+    """(d_in, d_out) normal weights times `scale` (default d_in^-0.5),
+    drawn in float32 on the generator's device from `gen`, then cast."""
+    scale = scale if scale is not None else d_in ** -0.5
+    w = torch.randn((d_in, d_out), generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return (w.mul_(scale)).to(dtype)
+
+
+def stack_init(init_fn: Callable, n: int) -> dict:
+    """Stack `n` calls of `init_fn()` (a nested dict of tensors) along a
+    new leading layer axis.  Layer 0 sets the shapes; every later layer is
+    copied into its slice as soon as it is made, so the transient memory is
+    one layer's tensors."""
+    first = init_fn()
+
+    def alloc(t):
+        if isinstance(t, dict):
+            return {k: alloc(v) for k, v in t.items()}
+        out = torch.empty((n,) + tuple(t.shape), dtype=t.dtype,
+                          device=t.device)
+        out[0] = t
+        return out
+
+    def fill(dst, src, i):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                fill(dst[k], v, i)
+            else:
+                dst[k][i] = v
+
+    stacked = alloc(first)
+    del first
+    for i in range(1, n):
+        fill(stacked, init_fn(), i)
+    return stacked
+
+
+def layer_slice(tree: dict, i: int) -> dict:
+    """Layer `i` of a stacked param tree (views, no copies)."""
+    return {k: layer_slice(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# norms / activations
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x, w, eps=1e-6):
+    """Normalise in float32, cast back to x's dtype, then scale by `w` (in
+    the reference's order: the product is in x's dtype)."""
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def head_rms_norm(x, w, eps=1e-6):
+    """qk-norm: normalize the last (head) dim; w is (dh,)."""
+    return rms_norm(x, w, eps)
+
+
+ACTS = {
+    "silu": F.silu,
+    # jax.nn.gelu defaults to the tanh approximation
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "relu2": lambda x: torch.square(F.relu(x)),
+}
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(dh: int, theta: float = 10000.0):
+    """(dh/2,) float64 numpy, as the reference computes them; a float32
+    `torch.pow` gives other angles at theta = 1e6."""
+    return 1.0 / (theta ** (np.arange(0, dh, 2) / dh))
+
+
+def _rotate(x, ang):
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """x: (B, S, H, dh); positions: (B, S) int32."""
+    dh = x.shape[-1]
+    freqs = torch.as_tensor(rope_freqs(dh, theta), dtype=torch.float32,
+                            device=x.device)
+    ang = positions[..., None].float() * freqs       # (B, S, dh/2)
+    return _rotate(x, ang)
+
+
+def apply_mrope(x, positions, sections, theta: float = 10000.0):
+    """Qwen2-VL M-RoPE: positions (B, S, 3) = (t, h, w); `sections` gives the
+    per-component share of the dh/2 frequency slots (sum == dh/2)."""
+    dh = x.shape[-1]
+    freqs = torch.as_tensor(rope_freqs(dh, theta), dtype=torch.float32,
+                            device=x.device)
+    total = float(sum(sections))
+    # each of the dh/2 frequency slots reads the position component whose
+    # proportional share it falls in (as in the reference)
+    comp = np.searchsorted(np.cumsum(sections) / total,
+                           (np.arange(dh // 2) + 0.5) / (dh // 2))
+    idx = torch.as_tensor(comp, dtype=torch.int64, device=x.device)
+    idx = idx[None, None, :].expand(positions.shape[:2] + (dh // 2,))
+    pos = torch.gather(positions.float(), -1, idx)
+    return _rotate(x, pos * freqs)

@@ -6,11 +6,15 @@ runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-All outputs are integers: tolerance 0, tensors must be equal."""
+The index kernels' outputs are integers: tolerance 0, tensors must be
+equal.  Flash attention is held at the reference's bars for its kernel
+against its oracle: atol = rtol = 2e-5 in float32, 2e-2 in bfloat16."""
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.configs.registry import get_arch, reduced_config
 from repro_torch.core import curve as tc
 from repro_torch.core import serve as tsv
 from repro_torch.core.cost import evaluate_pool
@@ -19,12 +23,16 @@ from repro_torch.core.theta import default_K
 from repro_torch.data.synth import make_dataset
 from repro_torch.data.workload import make_workload
 from repro_torch.kernels import cuda_lib
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import mha_ref
 from repro_torch.kernels.sfc_encode.ops import sfc_encode, sfc_encode_pool
 from repro_torch.kernels.sfc_encode.ref import (sfc_encode_pool_ref,
                                                 sfc_encode_ref)
 from repro_torch.kernels.window_filter.ops import window_filter, window_match
 from repro_torch.kernels.window_filter.ref import (window_filter_ref,
                                                    window_match_ref)
+from repro_torch.models.transformer import init_decode_state, init_model
+from repro_torch.train.steps import make_decode_step, make_prefill_step
 
 pytestmark = pytest.mark.cuda
 
@@ -155,3 +163,85 @@ def test_evaluate_pool_on_card_matches_host(cuda_device, family, depth):
     np.testing.assert_array_equal(got, host)
     np.testing.assert_array_equal(twin, host)
     np.testing.assert_array_equal(loop, host)
+
+
+@pytest.mark.parametrize("B,H,KH,S,dh,dtype,causal,window", [
+    (1, 4, 1, 256, 128, torch.float32, True, 0),
+    (1, 4, 1, 256, 128, torch.float32, False, 0),
+    (1, 4, 1, 256, 128, torch.bfloat16, True, 0),
+    (1, 4, 1, 256, 128, torch.bfloat16, False, 0),
+    (1, 2, 2, 512, 64, torch.float32, True, 64),
+    (1, 2, 2, 512, 64, torch.float32, True, 192),
+    (2, 4, 4, 128, 32, torch.float32, True, 0),
+    (2, 8, 2, 200, 32, torch.bfloat16, True, 48),
+    (1, 4, 2, 1, 64, torch.float32, True, 0),
+    (3, 6, 3, 129, 64, torch.bfloat16, False, 0),
+])
+def test_flash_attention_kernel_matches_twin(cuda_device, B, H, KH, S, dh,
+                                             dtype, causal, window):
+    """MHA, GQA and MQA; causal, full and windowed; S = 1, 129 and 200 take
+    the ragged last tile."""
+    g = torch.Generator(device=cuda_device).manual_seed(B * 100 + S)
+    q, k, v = (torch.randn(B, h, S, dh, generator=g, device=cuda_device)
+               .to(dtype) for h in (H, KH, KH))
+    before = cuda_lib.LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["flash_attention"] == before + 1
+    want = mha_ref(q, k, v, causal=causal, window=window)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(
+        cuda_device):
+    q = torch.zeros(1, 4, 64, 128, device=cuda_device)
+    k = torch.zeros(1, 3, 64, 128, device=cuda_device)
+    with pytest.raises(ValueError):
+        flash_attention(q, k, k)                       # H % KH != 0
+    with pytest.raises(ValueError):
+        odd = torch.zeros(1, 4, 64, 96, device=cuda_device)
+        flash_attention(odd, odd, odd)                 # dh = 96
+    with pytest.raises(TypeError):
+        h = q.half()
+        flash_attention(h, h, h)
+    with pytest.raises(ValueError):
+        t = q.transpose(1, 2)
+        flash_attention(t, t, t)                       # not contiguous
+
+
+def test_reduced_qwen3_serves_through_kernel_like_torch_backend(cuda_device):
+    """A reduced qwen3-4b prefill plus 4 greedy decode steps, the flash
+    kernel against the torch backend on the card: logits at the
+    reference's bf16 bar (atol 0.15, rtol 0.1), and one kernel launch per
+    layer per prefill.  Both runs decode the kernel run's greedy tokens."""
+    cfg = reduced_config(get_arch("qwen3-4b"))
+    params = init_model(cfg, seed=0)
+    B, S, steps = 2, 96, 4
+    toks = torch.randint(0, cfg.vocab, (B, S),
+                         generator=torch.Generator().manual_seed(1))
+    out, greedy = {}, []
+    for backend in ("cuda", "torch"):
+        prefill = make_prefill_step(cfg, ShapeConfig("p", S, B, "prefill"),
+                                    backend=backend)
+        decode = make_decode_step(cfg, ShapeConfig("d", S + steps, B,
+                                                   "decode"))
+        before = cuda_lib.LAUNCHES["flash_attention"]
+        last, caches = prefill(params, {"tokens": toks})
+        launched = cuda_lib.LAUNCHES["flash_attention"] - before
+        assert launched == (cfg.n_layers if backend == "cuda" else 0)
+        state = init_decode_state(cfg, S + steps, B)
+        for kv in ("k", "v"):
+            state[kv][:, :, :, :S] = caches[kv]
+        logits = [last[:, 0]]
+        for i in range(steps):
+            if backend == "cuda":
+                greedy.append(logits[-1].argmax(-1))
+            lg, state = decode(params, {"tokens": greedy[i][:, None],
+                                        "cur_len": S + i}, state)
+            logits.append(lg[:, 0])
+        out[backend] = torch.stack(logits, 1).float().cpu()
+    torch.testing.assert_close(out["cuda"], out["torch"], atol=0.15,
+                               rtol=0.1)
+    assert torch.isfinite(out["cuda"]).all()
