@@ -6,7 +6,10 @@ CUDA card and the CUDA toolkit (`nvcc`); it fails without them and prints
 no result.  Phases, each printing one JSON line:
 
 1. set-up: builds the CUDA kernels from `src/repro_torch/csrc/` into
-   `build/repro_torch/` and prints the card's name and power limit;
+   `build/repro_torch/`, prints the card's name and power limit, and
+   records for each flash kernel the registers, static shared memory and
+   spills that `ptxas -v` reports and whether the bf16 kernel's SASS holds
+   `HGMMA` (tensor-core) instructions (`cuobjdump -sass`);
 2. smbo: curve learning (SMBO, Algorithm 1) on the card through
    `learn_sfc`, on a 5% sample of each path's data with 100 sampled
    queries: a global curve for the main path (d=2, K=32) and a depth-2
@@ -24,13 +27,19 @@ no result.  Phases, each printing one JSON line:
    backend on the card and against brute force;
 5. piecewise path: a 1M-row NYC-like index (d=3) under the learned
    piecewise curve, held the same way;
-6. kernels_flash: the flash attention kernel against its plain twin
-   `mha_ref` on the card (atol = rtol = 2e-5 in float32, 2e-2 in bf16),
-   with times, bounds and `scaled_dot_product_attention` as a yardstick,
-   at the LM path's shape and the reference tests' shapes;
+6. kernels_flash: the two flash attention kernels against their plain
+   twin `mha_ref` on the card (atol = rtol = 2e-5 for the float32 scalar
+   kernel, 2e-2 for the bf16 tensor-core kernel, which is also held
+   against `flash_tc_ref` at 1e-2: that twin rounds where the kernel
+   rounds), with times (CUDA events over 20 launches after a warm-up,
+   for the twin and SDPA too, beside the profiler's), bounds and
+   `scaled_dot_product_attention` as a yardstick, at the LM path's shape
+   (also as the model's (B, S, H, dh)-strided views) and the reference
+   tests' shapes;
 7. lm_serve: qwen3-4b at its published widths and full depth (36 layers)
    on seeded random weights serves 4 requests of 2,048 seeded random
-   tokens: one prefill through the flash kernel, the caches stitched into
+   tokens: one prefill through the bf16 flash kernel (exactly one launch
+   per layer), the caches stitched into
    a state of 2,048 + 32 slots, 32 greedy decode steps; the prefill is
    held against the plain-torch attention backend on the card;
 8. launch check: every kernel ran on each path.
@@ -46,6 +55,8 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -207,13 +218,62 @@ def phase_setup() -> str:
     cuda_lib.library()
     build_s = time.perf_counter() - t0
     log = lib.with_suffix(".log")
-    if log.exists():
-        print(log.read_text(), file=sys.stderr, flush=True)
+    ptxas = log.read_text() if log.exists() else ""
+    print(ptxas, file=sys.stderr, flush=True)
     emit({"phase": "setup", "card": card, "build_s": build_s,
           "library": str(lib.relative_to(ROOT)),
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "python": sys.version.split()[0]})
+          "python": sys.version.split()[0],
+          "flash_ptxas": flash_ptxas(ptxas), "flash_tc_hgmma": hgmma(lib)})
     return card
+
+
+FLASH_ENTRY = re.compile(r"Compiling entry function '\S*?"
+                         r"(flash_tc_kernel|flash_fwd_kernel)I(f?)Li(\d+)E")
+
+
+def flash_ptxas(log: str) -> list:
+    """Registers, static shared memory and spill bytes of each flash
+    kernel instantiation, as `ptxas -v` reported them in the build log."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = FLASH_ENTRY.search(line)
+        if m:
+            cur = {"kernel": m.group(1),
+                   "dtype": "float32" if m.group(2) else "bfloat16",
+                   "dh": int(m.group(3))}
+            out.append(cur)
+        elif cur is not None and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            cur["spill_store_bytes"], cur["spill_load_bytes"] = (int(st),
+                                                                 int(ld))
+        elif cur is not None and "Used" in line and "registers" in line:
+            cur["registers"] = int(re.search(r"Used (\d+) registers",
+                                             line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem_bytes"] = int(smem.group(1)) if smem else 0
+            cur = None
+    return out
+
+
+def hgmma(lib: Path):
+    """HGMMA (wgmma) instructions in the SASS of each bf16 flash kernel
+    instantiation, by head dim, or "not available" without `cuobjdump`."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return "not available"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300)
+    if sass.returncode != 0:
+        return f"not available ({sass.stderr.strip()[:120]})"
+    counts, dh = {}, None
+    for line in sass.stdout.splitlines():
+        if "Function :" in line:
+            m = re.search(r"flash_tc_kernelILi(\d+)E", line)
+            dh = m.group(1) if m else None
+        elif dh is not None and "HGMMA" in line:
+            counts[dh] = counts.get(dh, 0) + 1
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -707,18 +767,34 @@ LM_ARCH = "qwen3-4b"
 LM_BATCH = 4                   # requests per prefill
 LM_PROMPT = 2048               # tokens per request
 FLASH_SHAPES = (
-    # name, B, H, KH, S, dh, dtype, causal, window
-    ("lm_serve", LM_BATCH, 32, 8, LM_PROMPT, 128, "bfloat16", True, 0),
-    ("mqa_f32_causal", 1, 4, 1, 256, 128, "float32", True, 0),
-    ("mqa_f32_full", 1, 4, 1, 256, 128, "float32", False, 0),
-    ("mqa_bf16_causal", 1, 4, 1, 256, 128, "bfloat16", True, 0),
-    ("mqa_bf16_full", 1, 4, 1, 256, 128, "bfloat16", False, 0),
-    ("window64", 1, 2, 2, 512, 64, "float32", True, 64),
-    ("window192", 1, 2, 2, 512, 64, "float32", True, 192),
-    ("reduced_dh32", 2, 4, 4, 256, 32, "float32", True, 0),
-    ("ragged_s1000", 1, 8, 2, 1000, 128, "bfloat16", True, 0),
+    # name, B, H, KH, S, dh, dtype, causal, window, strided: q, k and v
+    # are (B, heads, S, dh) views of (B, S, heads, dh) tensors, as
+    # `blocked_attention` passes them
+    ("lm_serve", LM_BATCH, 32, 8, LM_PROMPT, 128, "bfloat16", True, 0,
+     False),
+    ("lm_serve_strided", LM_BATCH, 32, 8, LM_PROMPT, 128, "bfloat16", True,
+     0, True),
+    ("lm_shape_f32", LM_BATCH, 32, 8, LM_PROMPT, 128, "float32", True, 0,
+     False),
+    ("mqa_f32_causal", 1, 4, 1, 256, 128, "float32", True, 0, False),
+    ("mqa_f32_full", 1, 4, 1, 256, 128, "float32", False, 0, False),
+    ("mqa_bf16_causal", 1, 4, 1, 256, 128, "bfloat16", True, 0, False),
+    ("mqa_bf16_full", 1, 4, 1, 256, 128, "bfloat16", False, 0, False),
+    ("window64", 1, 2, 2, 512, 64, "float32", True, 64, False),
+    ("window192", 1, 2, 2, 512, 64, "float32", True, 192, False),
+    ("window64_bf16", 1, 2, 2, 512, 64, "bfloat16", True, 64, False),
+    ("window192_bf16", 1, 2, 2, 512, 64, "bfloat16", True, 192, False),
+    ("reduced_dh32", 2, 4, 4, 256, 32, "float32", True, 0, False),
+    ("reduced_dh32_bf16", 2, 4, 4, 256, 32, "bfloat16", True, 0, False),
+    ("ragged_s1000", 1, 8, 2, 1000, 128, "bfloat16", True, 0, False),
 )
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# The bf16 kernel against `flash_tc_ref`, which rounds where it rounds:
+# float32 summation order and exp2's last bits remain, which can flip one
+# bf16 rounding of an output (at most 2^-7 of it) or of a probability.
+FLASH_TC_TOL = 1e-2
+FLASH_ROWS = {"flash_attention_tc": "lm_serve_strided",
+              "flash_attention": "lm_shape_f32"}
 
 
 def visible_pairs(S: int, causal: bool, window: int) -> int:
@@ -746,18 +822,38 @@ def flash_bound(B, H, KH, S, dh, dtype: str, causal, window) -> dict:
 
 
 def phase_kernels_flash(seed: int) -> dict:
+    """Each shape through `flash_attention` (the bf16 or the float32
+    kernel by dtype), held against `mha_ref` (and the bf16 kernel against
+    `flash_tc_ref`), then timed beside the twin and SDPA.  The counts of
+    the held calls, one per shape, are kept as `held_launches`."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.flash_attention.ref import mha_ref
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.flash_attention.ops import (KERNELS,
+                                                         flash_attention)
+    from repro_torch.kernels.flash_attention.ref import flash_tc_ref, mha_ref
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    out = {}
-    for name, B, H, KH, S, dh, dtype, causal, window in FLASH_SHAPES:
+    out, held = {}, {name: 0 for name in KERNELS.values()}
+    for name, B, H, KH, S, dh, dtype, causal, window, strided in FLASH_SHAPES:
         dt = getattr(torch, dtype)
-        q, k, v = (torch.randn(B, h, S, dh, generator=gen, device="cuda")
-                   .to(dt) for h in (H, KH, KH))
+        if strided:
+            q, k, v = (torch.randn(B, S, h, dh, generator=gen, device="cuda")
+                       .to(dt).transpose(1, 2) for h in (H, KH, KH))
+        else:
+            q, k, v = (torch.randn(B, h, S, dh, generator=gen, device="cuda")
+                       .to(dt) for h in (H, KH, KH))
         kw = dict(causal=causal, window=window)
+        kernel = KERNELS[dt]
+        before = dict(cuda_lib.LAUNCHES)
         got = flash_attention(q, k, v, **kw)
+        check(cuda_lib.LAUNCHES[kernel] == before[kernel] + 1
+              and sum(cuda_lib.LAUNCHES.values())
+              == sum(before.values()) + 1,
+              f"flash_attention[{name}] did not launch {kernel} once")
+        held[kernel] += 1
+        check(got.stride() == q.stride() or dt == torch.float32,
+              f"flash_attention[{name}]: output strides {got.stride()} "
+              f"differ from q's {q.stride()}")
         want = mha_ref(q, k, v, **kw)
         torch.cuda.synchronize()
         tol = FLASH_TOL[dtype]
@@ -765,7 +861,21 @@ def phase_kernels_flash(seed: int) -> dict:
         check(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
               f"flash_attention[{name}] disagrees with mha_ref (max abs "
               f"{err}, tolerance {tol})")
-        del got, want
+        res = {"shape": [B, H, KH, S, dh], "dtype": dtype, "kernel": kernel,
+               "strided": strided, "causal": causal, "window": window,
+               "tolerance": tol, "max_abs_err": err}
+        del want
+        if dt == torch.bfloat16:
+            twin = flash_tc_ref(q, k, v, **kw)
+            tc_err = (got.float() - twin.float()).abs().max().item()
+            check(torch.allclose(got.float(), twin.float(),
+                                 atol=FLASH_TC_TOL, rtol=FLASH_TC_TOL),
+                  f"flash_attention[{name}] disagrees with flash_tc_ref "
+                  f"(max abs {tc_err}, tolerance {FLASH_TC_TOL})")
+            res.update(tc_twin_tolerance=FLASH_TC_TOL,
+                       tc_twin_max_abs_err=tc_err)
+            del twin
+        del got
         mask = None
         if window > 0:
             r = torch.arange(S, device="cuda")
@@ -776,15 +886,22 @@ def phase_kernels_flash(seed: int) -> dict:
             enable_gqa=True)
         plain = kernel_times(lambda: mha_ref(q, k, v, **kw), iters=5)
         lib = kernel_times(sdpa)
-        out[name] = {"shape": [B, H, KH, S, dh], "dtype": dtype,
-                     "causal": causal, "window": window, "tolerance": tol,
-                     "max_abs_err": err,
-                     **kernel_times(lambda: flash_attention(q, k, v, **kw),
-                                    one_launch=True),
-                     "plain_ms": plain["ms"], "plain_wall_ms": plain["wall_ms"],
-                     "library_ms": lib["ms"],
-                     **flash_bound(B, H, KH, S, dh, dtype, causal, window)}
+        t = kernel_times(lambda: flash_attention(q, k, v, **kw),
+                         one_launch=True)
+        # CUDA events for all three: in a long run the profiler loses
+        # records, and SDPA's several kernels then read low (below the
+        # bound once); at small shapes events include the host's launches
+        res.update({"ms": t["wall_ms"], "timing": "events",
+                    "profiler_ms": t["ms"],
+                    "device_events_per_call": t["device_events_per_call"],
+                    "plain_ms": plain["wall_ms"],
+                    "plain_profiler_ms": plain["ms"],
+                    "library_ms": lib["wall_ms"],
+                    "library_profiler_ms": lib["ms"],
+                    **flash_bound(B, H, KH, S, dh, dtype, causal, window)})
+        out[name] = res
         del q, k, v
+    out["held_launches"] = held
     emit({"phase": "kernels_flash", "flash_attention": out})
     return out
 
@@ -840,9 +957,11 @@ def phase_lm_serve(seed: int, n_layers: int, decode_steps: int) -> dict:
     cuda_lib.reset_launches()
     (last, caches), prefill_s = timed(lambda: prefill(params, batch))
     launches = dict(cuda_lib.LAUNCHES)
-    check(launches["flash_attention"] == cfg.n_layers,
-          f"lm_serve: {launches['flash_attention']} flash launches per "
-          f"prefill, expected {cfg.n_layers}")
+    check(launches["flash_attention_tc"] == cfg.n_layers
+          and launches["flash_attention"] == 0,
+          f"lm_serve: {launches['flash_attention_tc']} bf16 and "
+          f"{launches['flash_attention']} float32 flash launches per "
+          f"prefill, expected {cfg.n_layers} and 0")
     check(last.shape == (B, 1, cfg.vocab_padded),
           f"lm_serve: prefill logits {tuple(last.shape)}")
     check(bool(torch.isfinite(last.float()).all()),
@@ -927,6 +1046,8 @@ KERNEL_ROWS = (
      "src/repro/kernels/sfc_encode/kernel.py:107"),
     ("sfc_encode_pool", "src/repro_torch/csrc/sfc_encode.cu",
      "src/repro/kernels/sfc_encode/kernel.py:174"),
+    ("flash_attention_tc", "src/repro_torch/csrc/flash_attention_tc.cu",
+     "src/repro/kernels/flash_attention/kernel.py:87"),
     ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
      "src/repro/kernels/flash_attention/kernel.py:87"),
 )
@@ -978,22 +1099,25 @@ def main(argv=None) -> int:
     main_res = phase_main(osm, args.batches, main_curve)
     pw_res = phase_piecewise(nyc, args.batches, pw_curve)
     del osm, nyc
-    kern["flash_attention"] = phase_kernels_flash(args.seed)
+    flash = phase_kernels_flash(args.seed)
     lm = phase_lm_serve(args.seed, args.lm_layers, args.decode_steps)
 
     rows = []
     for name, source, replaces in KERNEL_ROWS:
-        k, path, pw_path = kern[name].get("path"), main_res, pw_res
+        k, path, pw_path = kern.get(name, {}).get("path"), main_res, pw_res
         library_ms = None
-        if name == "flash_attention":
-            k, path, pw_path = kern[name]["lm_serve"], lm, None
+        if name.startswith("flash_attention"):
+            k, path, pw_path = flash[FLASH_ROWS[name]], lm, None
             library_ms = k["library_ms"]
         elif name == "sfc_encode":
             k = kern[name]["global_path"]
         elif name == "sfc_encode_pool":
             k = kern[name]["global_shared_path"]
             path, pw_path = smbo["global"], smbo["piecewise"]
-        check(path["launches"][name] > 0 and (
+        # no served configuration takes float32 attention: the float32
+        # kernel is off every path and held only in kernels_flash
+        off_path = name == "flash_attention"
+        check(off_path or path["launches"][name] > 0 and (
             pw_path is None or pw_path["launches"][name] > 0),
               f"{name} was not launched on its paths")
         row = {
@@ -1005,6 +1129,8 @@ def main(argv=None) -> int:
             "bound_by": k["bound_by"], "library_ms": library_ms}
         if pw_path is not None:
             row["piecewise_launches"] = pw_path["launches"][name]
+        if off_path:
+            row["held_launches"] = flash["held_launches"][name]
         rows.append(row)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

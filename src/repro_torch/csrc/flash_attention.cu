@@ -1,16 +1,17 @@
-// Forward attention with GQA, causal and sliding-window masks, online
-// softmax in float32.
+// Forward attention in float32 with GQA, causal and sliding-window masks,
+// online softmax in float32.
 //
 // Replaces the Pallas TPU kernel `flash_attention_pallas` (body
-// `_flash_kernel`) in src/repro/kernels/flash_attention/kernel.py.  It
-// computes what that kernel computes:
+// `_flash_kernel`) in src/repro/kernels/flash_attention/kernel.py for
+// float32 inputs (bfloat16 inputs take the tensor-core kernel in
+// flash_attention_tc.cu).  It computes what that kernel computes:
 //   o[bh] = softmax(q[bh] * dh^-0.5 . k[kvh]^T + mask) . v[kvh],
 //   kvh = bh / (BH / BKH)   (the TPU kernel's kv index map, bh // group),
 // with q, k and v cast to float32 and q scaled before the product, masked
 // scores set to -1e30 (not -inf, as the TPU kernel does), the causal mask
 // col <= row, the window mask col >= row - window + 1, and the output
-// acc / max(l, 1e-30) cast back to q's dtype.  Inputs q (BH, S, dh) and
-// k/v (BKH, S, dh), contiguous, float32 or bfloat16; dh in {32, 64, 128};
+// acc / max(l, 1e-30).  Inputs q (BH, S, dh) and k/v (BKH, S, dh),
+// contiguous float32; dh in {32, 64, 128};
 // any S (the ragged last tile is masked here; the TPU's S % bq assertion was
 // a tiling limit).
 //
@@ -22,11 +23,10 @@
 // lo = max(0, (q0 - window + 1) / 64) when window > 0.
 //
 // Bound on the H100: operations.  Causal attention does 4*dh flops per
-// visible (row, col) pair, 2*2*BH*S^2*dh/2 in all; at the qwen3-4b prefill
-// (BH = 4*32, S = 2048, dh = 128) that is 1.37e11 flops: 0.139 ms at the
-// bf16 tensor-core peak (989 TFLOP/s), 2.05 ms at the float32 non-tensor peak
-// (67 TFLOP/s) this kernel's scalar FMAs run at, against 168 MB of q, k, v
-// and o over 3.35 TB/s = 0.050 ms.
+// visible (row, col) pair, 2*2*BH*S^2*dh/2 in all, at the float32
+// non-tensor peak (67 TFLOP/s) this kernel's scalar FMAs run at.  TF32
+// tensor cores would keep about three decimal digits, short of the
+// reference's 2e-5 float32 bar.
 //
 // Design, simple and correct first: 256 threads as 16 x 16; thread (ty, tx)
 // owns rows ty*4 .. ty*4+3 of the q-tile, score columns tx + 16*j (j < 4) of
@@ -35,11 +35,8 @@
 // the tile's probabilities in float32; row max and sum reduce across the 16
 // lanes of a half-warp with shuffles.  Pitches are padded so that no two
 // lanes of a warp read different words of one bank.  Grid: one block per
-// (q-tile, bh), the heaviest causal q-tiles of every head first.  Scalar FMA
-// throughout; tensor-core tiles (mma.sync / wgmma), cp.async / TMA staging
-// and a split-KV decode variant are later work.
+// (q-tile, bh), the heaviest causal q-tiles of every head first.
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
 
 namespace {
@@ -50,17 +47,10 @@ constexpr int kThreads = 256;   // 16 x 16
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 // Shared memory layout (bytes), probabilities first so that every region
@@ -241,28 +231,19 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q (BH, S, dh), k/v (BKH, S, dh), o (BH, S, dh), all of one dtype:
-// dtype_code 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = ok).
+// q (BH, S, dh), k/v (BKH, S, dh), o (BH, S, dh), contiguous float32.
+// Returns a cudaError_t (0 = ok).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int BH,
                                       int BKH, int S, int dh, int causal,
-                                      int window, int dtype_code,
-                                      void* stream) {
+                                      int window, void* stream) {
   if (BH <= 0 || BKH <= 0 || BH % BKH || S <= 0 || window < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype_code == 0) {
-    switch (dh) {
-      case 32: return (int)launch_typed<float, 32>(q, k, v, o, BH, BKH, S, causal, window, st);
-      case 64: return (int)launch_typed<float, 64>(q, k, v, o, BH, BKH, S, causal, window, st);
-      case 128: return (int)launch_typed<float, 128>(q, k, v, o, BH, BKH, S, causal, window, st);
-    }
-  } else if (dtype_code == 1) {
-    switch (dh) {
-      case 32: return (int)launch_typed<__nv_bfloat16, 32>(q, k, v, o, BH, BKH, S, causal, window, st);
-      case 64: return (int)launch_typed<__nv_bfloat16, 64>(q, k, v, o, BH, BKH, S, causal, window, st);
-      case 128: return (int)launch_typed<__nv_bfloat16, 128>(q, k, v, o, BH, BKH, S, causal, window, st);
-    }
+  switch (dh) {
+    case 32: return (int)launch_typed<float, 32>(q, k, v, o, BH, BKH, S, causal, window, st);
+    case 64: return (int)launch_typed<float, 64>(q, k, v, o, BH, BKH, S, causal, window, st);
+    case 128: return (int)launch_typed<float, 128>(q, k, v, o, BH, BKH, S, causal, window, st);
   }
   return (int)cudaErrorInvalidValue;
 }

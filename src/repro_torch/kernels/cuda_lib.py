@@ -28,9 +28,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {"window_filter": 0, "window_match": 0, "sfc_encode": 0,
-            "sfc_encode_pool": 0, "flash_attention": 0}
+            "sfc_encode_pool": 0, "flash_attention": 0,
+            "flash_attention_tc": 0}
 
 _VP, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_I64P = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     # pts, rect, size, out, G, d, cap, stream
     "window_filter_launch": (_VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP),
@@ -41,9 +43,12 @@ _SIGNATURES = {
     # x, x_stride, pos, reg, out, n, d, K, R, M, P, number of SMs, stream
     "sfc_encode_pool_launch": (_VP, _I64, _VP, _VP, _VP, _I64, _INT, _INT,
                                _INT, _INT, _INT, _INT, _VP),
-    # q, k, v, o, BH, BKH, S, dh, causal, window, dtype code, stream
+    # q, k, v, o, BH, BKH, S, dh, causal, window, stream (float32)
     "flash_attention_launch": (_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
-                               _INT, _INT, _INT, _VP),
+                               _INT, _INT, _VP),
+    # q, k, v, o, 12 strides, B, H, KH, S, dh, causal, window, stream (bf16)
+    "flash_attention_tc_launch": (_VP, _VP, _VP, _VP, _I64P, _INT, _INT,
+                                  _INT, _INT, _INT, _INT, _INT, _VP),
 }
 
 _lib = None

@@ -1,13 +1,26 @@
-"""Public wrapper for the flash attention kernel (csrc/flash_attention.cu).
+"""Public wrapper for the flash attention kernels.
 
-``backend="cuda"`` launches the CUDA kernel for CUDA tensors and uses the
+``backend="cuda"`` launches a CUDA kernel for CUDA tensors and uses the
 plain-torch twin `mha_ref` only for CPU tensors; ``backend="torch"``
 always uses the twin.  Layout as the reference's `ops.flash_attention`:
-q (B, H, S, dh), k/v (B, KH, S, dh); the kernel sees them flattened to
-(B·H, S, dh) and (B·KH, S, dh) and maps query head ``bh`` to kv head
-``bh // (H/KH)``.
+q (B, H, S, dh), k/v (B, KH, S, dh), query head ``h`` reading kv head
+``h // (H/KH)``.
+
+Two kernels, chosen by dtype (`plan_flash_attention`):
+
+- bfloat16: ``flash_attention_tc`` (csrc/flash_attention_tc.cu), wgmma
+  tensor-core products fed by TMA.  It reads q, k and v and writes o
+  through their strides, so any view with a contiguous last dimension and
+  16-byte-aligned base and strides is taken as it lies; the model's
+  (B, S, H, dh) activations seen as (B, H, S, dh) need no copy, and o has
+  q's strides.
+- float32: ``flash_attention`` (csrc/flash_attention.cu), scalar FMAs,
+  on contiguous (B·H, S, dh) and (B·KH, S, dh) copies.
 """
 from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -16,21 +29,60 @@ from .ref import mha_ref
 
 BACKENDS = ("cuda", "torch")
 HEAD_DIMS = (32, 64, 128)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+KERNELS = {torch.bfloat16: "flash_attention_tc",
+           torch.float32: "flash_attention"}
+ALIGN = 16          # bytes: TMA base and stride alignment
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    backend: str = "cuda"):
-    """q: (B, H, S, dh); k/v: (B, KH, S, dh) -> (B, H, S, dh) in q.dtype.
-    f32 or bf16 in, softmax in f32; dh in {32, 64, 128}; any S."""
-    if backend not in BACKENDS:
-        raise ValueError(f"backend must be one of {BACKENDS}; got {backend!r}")
-    if backend == "torch" or q.device.type == "cpu":
-        return mha_ref(q, k, v, causal=causal, window=window)
-    if q.dtype not in _DTYPE_CODES:
+@dataclass(frozen=True)
+class FlashPlan:
+    """What the wrapper launches: the kernel (its `LAUNCHES` key), the
+    tensors it passes (views of the caller's for bf16, contiguous copies
+    for float32) and, for bf16, their (batch, head, row) element
+    strides."""
+    kernel: str
+    q: torch.Tensor
+    k: torch.Tensor
+    v: torch.Tensor
+    B: int
+    H: int
+    KH: int
+    S: int
+    dh: int
+    strides: tuple      # bf16: (q, k, v), each (batch, head, row)
+
+
+def _tma_strides(name: str, t: torch.Tensor) -> tuple:
+    """(batch, head, row) element strides of a bf16 view the TMA can read:
+    contiguous last dimension, base and strides 16-byte aligned.  A
+    dimension of size 1 is never stepped, so its stride is not checked."""
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name}: the last dimension must be contiguous; "
+                         f"strides {tuple(t.stride())}")
+    if t.data_ptr() % ALIGN:
+        raise ValueError(f"{name}: base address must be {ALIGN}-byte "
+                         f"aligned")
+    out = []
+    for size, st in zip(t.shape[:3], t.stride()[:3]):
+        st = st if size > 1 else t.shape[-1]
+        if (st * t.element_size()) % ALIGN:
+            raise ValueError(f"{name}: strides {tuple(t.stride())} are not "
+                             f"{ALIGN}-byte multiples")
+        out.append(st)
+    return tuple(out)
+
+
+def plan_flash_attention(q, k, v, *, window: int = 0) -> FlashPlan:
+    """Check q, k and v against what the kernels take and pick one; raise
+    on anything else.  Reaches no card, so the CPU tests run it."""
+    if q.dtype not in KERNELS:
         raise TypeError(f"q must be float32 or bfloat16; got {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        cuda_lib.check_cuda(name, t, q.dtype, 4)
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} must be {q.dtype}; got {t.dtype}")
+        if t.dim() != 4:
+            raise ValueError(f"{name} must have rank 4; got "
+                             f"{tuple(t.shape)}")
     B, H, S, dh = q.shape
     KH = k.shape[1]
     if k.shape != (B, KH, S, dh) or v.shape != k.shape:
@@ -42,10 +94,41 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"head dim {dh} not supported; one of {HEAD_DIMS}")
     if window < 0:
         raise ValueError(f"window must be >= 0; got {window}")
-    o = torch.empty_like(q)
-    if o.numel():
-        cuda_lib.launch("flash_attention_launch", q.data_ptr(), k.data_ptr(),
-                        v.data_ptr(), o.data_ptr(), B * H, B * KH, S, dh,
-                        int(bool(causal)), int(window), _DTYPE_CODES[q.dtype])
-        cuda_lib.LAUNCHES["flash_attention"] += 1
+    kernel = KERNELS[q.dtype]
+    if kernel == "flash_attention":
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        strides = ()
+    else:
+        strides = tuple(_tma_strides(n, t)
+                        for n, t in (("q", q), ("k", k), ("v", v)))
+    return FlashPlan(kernel, q, k, v, B, H, KH, S, dh, strides)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    backend: str = "cuda"):
+    """q: (B, H, S, dh); k/v: (B, KH, S, dh) -> (B, H, S, dh) in q.dtype.
+    f32 or bf16 in, softmax in f32; dh in {32, 64, 128}; any S."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}; got {backend!r}")
+    if backend == "torch" or q.device.type == "cpu":
+        return mha_ref(q, k, v, causal=causal, window=window)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor; got {t.device}")
+    plan = plan_flash_attention(q, k, v, window=window)
+    o = torch.empty_like(plan.q)
+    if not o.numel():
+        return o
+    B, H, KH, S, dh = plan.B, plan.H, plan.KH, plan.S, plan.dh
+    ptrs = (plan.q.data_ptr(), plan.k.data_ptr(), plan.v.data_ptr(),
+            o.data_ptr())
+    if plan.kernel == "flash_attention":
+        cuda_lib.launch("flash_attention_launch", *ptrs, B * H, B * KH, S,
+                        dh, int(bool(causal)), int(window))
+    else:
+        strides = plan.strides + (_tma_strides("o", o),)
+        arr = (ctypes.c_longlong * 12)(*(s for t in strides for s in t))
+        cuda_lib.launch("flash_attention_tc_launch", *ptrs, arr, B, H, KH, S,
+                        dh, int(bool(causal)), int(window))
+    cuda_lib.LAUNCHES[plan.kernel] += 1
     return o

@@ -51,7 +51,8 @@ def blocked_attention(q, k, v, *, causal=True, window=0, q_chunk=1024,
     """q: (B, S, H, dh); k/v: (B, T, KH, dh) -> (B, S, H, dh).
 
     ``backend="cuda"``: the flash attention kernel on (B, H, S, dh)
-    transposes (the twin `mha_ref` when the tensors lie on the CPU).
+    views of the (B, S, H, dh) activations, read and written in place in
+    bf16 (the twin `mha_ref` when the tensors lie on the CPU).
     ``backend="torch"``: a loop over q chunks, each walking exactly the kv
     chunks it can see, so causal and sliding windows do near-ideal flops.
     """
@@ -60,10 +61,8 @@ def blocked_attention(q, k, v, *, causal=True, window=0, q_chunk=1024,
     B, S, H, dh = q.shape
     T = k.shape[1]
     if backend == "cuda":
-        o = flash_attention(q.transpose(1, 2).contiguous(),
-                            k.transpose(1, 2).contiguous(),
-                            v.transpose(1, 2).contiguous(), causal=causal,
-                            window=window)
+        o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=causal, window=window)
         return o.transpose(1, 2)
     q_chunk = min(q_chunk, S)
     kv_chunk = min(kv_chunk, T)

@@ -8,7 +8,12 @@ runs on a machine that has only PyTorch:
 
 The index kernels' outputs are integers: tolerance 0, tensors must be
 equal.  Flash attention is held at the reference's bars for its kernel
-against its oracle: atol = rtol = 2e-5 in float32, 2e-2 in bfloat16."""
+against its oracle: atol = rtol = 2e-5 in float32, 2e-2 in bfloat16.  The
+bf16 tensor-core kernel is also held against `flash_tc_ref`, which rounds
+where it rounds (P as two bf16 parts, scale after the product), at
+atol = rtol = 1e-2: what is left is float32 summation order and exp2's
+last bits, which can flip one bf16 rounding of an output (at most 2^-7
+of it) or of a probability."""
 import numpy as np
 import pytest
 import torch
@@ -23,8 +28,8 @@ from repro_torch.core.theta import default_K
 from repro_torch.data.synth import make_dataset
 from repro_torch.data.workload import make_workload
 from repro_torch.kernels import cuda_lib
-from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.flash_attention.ref import mha_ref
+from repro_torch.kernels.flash_attention.ops import KERNELS, flash_attention
+from repro_torch.kernels.flash_attention.ref import flash_tc_ref, mha_ref
 from repro_torch.kernels.sfc_encode.ops import sfc_encode, sfc_encode_pool
 from repro_torch.kernels.sfc_encode.ref import (sfc_encode_pool_ref,
                                                 sfc_encode_ref)
@@ -184,10 +189,10 @@ def test_flash_attention_kernel_matches_twin(cuda_device, B, H, KH, S, dh,
     g = torch.Generator(device=cuda_device).manual_seed(B * 100 + S)
     q, k, v = (torch.randn(B, h, S, dh, generator=g, device=cuda_device)
                .to(dtype) for h in (H, KH, KH))
-    before = cuda_lib.LAUNCHES["flash_attention"]
+    before = cuda_lib.LAUNCHES[KERNELS[dtype]]
     got = flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert cuda_lib.LAUNCHES["flash_attention"] == before + 1
+    assert cuda_lib.LAUNCHES[KERNELS[dtype]] == before + 1
     want = mha_ref(q, k, v, causal=causal, window=window)
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     assert got.dtype == dtype
@@ -207,8 +212,61 @@ def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(
         h = q.half()
         flash_attention(h, h, h)
     with pytest.raises(ValueError):
-        t = q.transpose(1, 2)
-        flash_attention(t, t, t)                       # not contiguous
+        wide = torch.zeros(1, 4, 64, 256, device=cuda_device,
+                           dtype=torch.bfloat16)
+        t = wide[..., ::2]
+        flash_attention(t, t, t)                       # strided last dim
+    with pytest.raises(ValueError):
+        flat = torch.zeros(1 + 4 * 64 * 128, device=cuda_device,
+                           dtype=torch.bfloat16)
+        t = flat[1:].view(1, 4, 64, 128)
+        flash_attention(t, t, t)                       # base not aligned
+
+
+def _bf16_inputs(dev, B, H, KH, S, dh, seed, strided=False):
+    """Seeded bf16 q, k, v as (B, H, S, dh); `strided`: views of
+    (B, S, heads, dh) tensors, as the model passes them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if strided:
+        return tuple(torch.randn(B, S, h, dh, generator=g, device=dev)
+                     .bfloat16().transpose(1, 2) for h in (H, KH, KH))
+    return tuple(torch.randn(B, h, S, dh, generator=g, device=dev)
+                 .bfloat16() for h in (H, KH, KH))
+
+
+@pytest.mark.parametrize("B,H,KH,S,dh,causal,window,strided", [
+    (1, 2, 2, 512, 64, True, 64, False),     # windows
+    (1, 2, 2, 512, 64, True, 192, False),
+    (2, 4, 4, 256, 32, True, 0, False),      # dh 32, 64, 128
+    (1, 4, 2, 256, 64, False, 0, False),
+    (1, 4, 1, 256, 128, True, 0, False),     # MQA
+    (1, 4, 2, 1, 128, True, 0, False),       # S = 1, 129, 200, 1000
+    (3, 6, 3, 129, 64, False, 0, False),
+    (2, 8, 2, 200, 32, True, 48, False),
+    (1, 8, 2, 1000, 128, True, 0, False),    # GQA
+    (2, 32, 8, 384, 128, True, 0, True),     # the model's strided views
+    (1, 4, 2, 200, 64, True, 0, True),
+])
+def test_flash_tc_kernel_matches_twins(cuda_device, B, H, KH, S, dh, causal,
+                                       window, strided):
+    """The bf16 tensor-core kernel against `mha_ref` at the reference's
+    bar and against `flash_tc_ref` at 1e-2; one launch of its own counter,
+    none of the float32 kernel's; o keeps q's strides."""
+    q, k, v = _bf16_inputs(cuda_device, B, H, KH, S, dh, B * 1000 + S,
+                           strided)
+    before = dict(cuda_lib.LAUNCHES)
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["flash_attention_tc"] == (
+        before["flash_attention_tc"] + 1)
+    assert cuda_lib.LAUNCHES["flash_attention"] == before["flash_attention"]
+    assert got.dtype == torch.bfloat16 and got.stride() == q.stride()
+    kw = dict(causal=causal, window=window)
+    torch.testing.assert_close(got.float(), mha_ref(q, k, v, **kw).float(),
+                               atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(got.float(),
+                               flash_tc_ref(q, k, v, **kw).float(),
+                               atol=1e-2, rtol=1e-2)
 
 
 def test_reduced_qwen3_serves_through_kernel_like_torch_backend(cuda_device):
@@ -227,9 +285,9 @@ def test_reduced_qwen3_serves_through_kernel_like_torch_backend(cuda_device):
                                     backend=backend)
         decode = make_decode_step(cfg, ShapeConfig("d", S + steps, B,
                                                    "decode"))
-        before = cuda_lib.LAUNCHES["flash_attention"]
+        before = cuda_lib.LAUNCHES["flash_attention_tc"]
         last, caches = prefill(params, {"tokens": toks})
-        launched = cuda_lib.LAUNCHES["flash_attention"] - before
+        launched = cuda_lib.LAUNCHES["flash_attention_tc"] - before
         assert launched == (cfg.n_layers if backend == "cuda" else 0)
         state = init_decode_state(cfg, S + steps, B)
         for kv in ("k", "v"):

@@ -10,17 +10,31 @@ Inputs are drawn with numpy from a seed and handed to both packages (bf16
 inputs are the same float32 draws rounded to nearest on both sides).
 Tolerances are the reference's own bars for its kernel against its oracle:
 atol = rtol = 2e-5 in float32 (summation order of the online softmax) and
-2e-2 in bfloat16 (one bf16 rounding of the output)."""
+2e-2 in bfloat16 (one bf16 rounding of the output).  `flash_tc_ref`, the
+twin of the bf16 tensor-core kernel, carries P into P.V as two bf16
+parts (hi + lo) and scales after the product; it is held to the
+reference at the bf16 bar, and a reduced qwen3-4b through it to the
+reference's model at the reference's bar for two bf16 computations of the
+same logits (atol 0.15, rtol 0.1, tests/test_models_smoke.py)."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.configs import registry as rreg
+from repro.dist.sharding import ShardingRules
 from repro.kernels.flash_attention.kernel import flash_attention_pallas
 from repro.kernels.flash_attention.ref import mha_ref as r_mha_ref
+from repro.models import transformer as rt
+from repro_torch.configs import registry as treg
+from repro_torch.core.convert import lm_params_from_numpy
 from repro_torch.kernels import cuda_lib
-from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.flash_attention.ref import mha_ref
+from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                     plan_flash_attention)
+from repro_torch.kernels.flash_attention.ref import flash_tc_ref, mha_ref
+from repro_torch.models import attention as ta
+from repro_torch.models import transformer as tt
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -112,3 +126,148 @@ def test_wrapper_rejects_unknown_backend():
     q = torch.zeros(1, 1, 64, 32)
     with pytest.raises(ValueError):
         flash_attention(q, q, q, backend="pallas")
+
+
+# ---------------------------------------------------------------------------
+# the bf16 tensor-core kernel's twin
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,H,KH,S,dh", [
+    (1, 4, 4, 256, 64),     # MHA
+    (2, 8, 2, 128, 64),     # GQA
+    (1, 4, 1, 256, 128),    # MQA
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_tc_twin_matches_reference(B, H, KH, S, dh, causal):
+    """bf16, at the shapes of the reference's own kernel tests."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(B * 1000 + H, B, H, KH, S, dh,
+                                         "bfloat16")
+    got = flash_tc_ref(tq, tk, tv, causal=causal)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, H, S, dh)
+    _close(got, np.asarray(r_mha_ref(jq, jk, jv, causal=causal), np.float32),
+           "bfloat16")
+    _close(got, _pallas(jq, jk, jv, causal=causal), "bfloat16")
+
+
+@pytest.mark.parametrize("window", [64, 192])
+def test_flash_tc_twin_sliding_window(window):
+    (jq, jk, jv), (tq, tk, tv) = _inputs(window, 1, 2, 2, 512, 64,
+                                         "bfloat16")
+    got = flash_tc_ref(tq, tk, tv, causal=True, window=window)
+    want = np.asarray(r_mha_ref(jq, jk, jv, causal=True, window=window),
+                      np.float32)
+    _close(got, want, "bfloat16")
+    _close(got, _pallas(jq, jk, jv, causal=True, window=window), "bfloat16")
+
+
+def test_flash_tc_twin_at_ragged_length():
+    """S = 1,000 with GQA: the kernel's last kv tile is ragged (the
+    reference's kernel asserts S % bq == 0, so only its oracle applies)."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(1000, 1, 8, 2, 1000, 128,
+                                         "bfloat16")
+    want = np.asarray(r_mha_ref(jq, jk, jv, causal=True), np.float32)
+    _close(flash_tc_ref(tq, tk, tv, causal=True), want, "bfloat16")
+
+
+def test_reduced_qwen3_through_flash_tc_twin_matches_reference(monkeypatch):
+    """A reduced qwen3-4b forward whose attention is the bf16 kernel's
+    twin, against the reference's model on the same weights and tokens."""
+    rcfg = rreg.reduced_config(rreg.get_arch("qwen3-4b"))
+    tcfg = treg.reduced_config(treg.get_arch("qwen3-4b"))
+    params, _ = rt.init_model(jax.random.PRNGKey(0), rcfg,
+                              ShardingRules(model_size=1, data_size=1,
+                                            fsdp=False))
+    tp = lm_params_from_numpy(jax.tree.map(np.asarray, params), device="cpu")
+    toks = np.random.default_rng(3).integers(0, rcfg.vocab, size=(2, 160))
+    toks = toks.astype(np.int32)
+    calls = []
+
+    def twin(q, k, v, *, causal, window):
+        calls.append(q.dtype)
+        return flash_tc_ref(q, k, v, causal=causal, window=window)
+
+    monkeypatch.setattr(ta, "flash_attention", twin)
+    got, _, _ = tt.forward(tp, tcfg, {"tokens": torch.from_numpy(toks)})
+    want, _, _ = rt.forward(params, rcfg, {"tokens": jnp.asarray(toks)})
+    assert calls == [torch.bfloat16] * tcfg.n_layers
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=0.15,
+                               rtol=0.1)
+
+
+# ---------------------------------------------------------------------------
+# the wrapper's plan: layout, alignment and kernel choice
+# ---------------------------------------------------------------------------
+
+
+def test_plan_takes_model_layout_views_without_a_copy():
+    """(B, S, heads, dh) activations seen as (B, heads, S, dh): the bf16
+    kernel reads them in place through their strides."""
+    x = torch.zeros(2, 96, 8, 128, dtype=torch.bfloat16)
+    kv = torch.zeros(2, 96, 2, 128, dtype=torch.bfloat16)
+    q, k = x.transpose(1, 2), kv.transpose(1, 2)
+    plan = plan_flash_attention(q, k, k)
+    assert plan.kernel == "flash_attention_tc"
+    assert plan.q.data_ptr() == x.data_ptr()
+    assert plan.k.data_ptr() == kv.data_ptr()
+    assert plan.strides == ((96 * 8 * 128, 128, 8 * 128),
+                            (96 * 2 * 128, 128, 2 * 128),
+                            (96 * 2 * 128, 128, 2 * 128))
+    assert (plan.B, plan.H, plan.KH, plan.S, plan.dh) == (2, 8, 2, 96, 128)
+    # the output the wrapper allocates keeps q's strides
+    assert torch.empty_like(plan.q).stride() == q.stride()
+
+
+@pytest.mark.parametrize("dtype,kernel", [
+    (torch.bfloat16, "flash_attention_tc"),
+    (torch.float32, "flash_attention"),
+])
+def test_plan_picks_kernel_by_dtype(dtype, kernel):
+    """bf16 takes the tensor-core kernel on the caller's views; float32 the
+    scalar kernel on contiguous copies."""
+    x = torch.zeros(2, 64, 4, 64, dtype=dtype).transpose(1, 2)
+    plan = plan_flash_attention(x, x, x)
+    assert plan.kernel == kernel
+    if dtype == torch.float32:
+        assert plan.q.is_contiguous() and plan.q.data_ptr() != x.data_ptr()
+    else:
+        assert plan.q is x
+        assert plan.strides[0] == (64 * 4 * 64, 64, 4 * 64)
+
+
+@pytest.mark.parametrize("make,what", [
+    (lambda: torch.zeros(1, 4, 64, 256, dtype=torch.bfloat16)[..., ::2],
+     "contiguous"),
+    (lambda: torch.zeros(1, 4, 64, 132, dtype=torch.bfloat16)[..., :128],
+     "multiples"),
+    (lambda: torch.zeros(1 + 4 * 64 * 64, dtype=torch.bfloat16)[1:]
+     .view(1, 4, 64, 64), "aligned"),
+])
+def test_plan_rejects_layouts_the_tma_cannot_read(make, what):
+    x = make()
+    with pytest.raises(ValueError, match=what):
+        plan_flash_attention(x, x, x)
+
+
+def test_plan_ignores_strides_of_size_one_dimensions():
+    """A dimension of size 1 is never stepped, so its stride need not be
+    a 16-byte multiple (here 130 elements): the plan gives the TMA dh."""
+    x = torch.zeros(1, 1, 1, 130, dtype=torch.bfloat16)[..., :128]
+    assert plan_flash_attention(x, x, x).strides[0] == (128, 128, 128)
+
+
+def test_plan_rejects_bad_shapes_and_types():
+    q = torch.zeros(1, 4, 64, 128, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        plan_flash_attention(q, q[:, :3], q[:, :3])        # H % KH != 0
+    with pytest.raises(ValueError):
+        odd = torch.zeros(1, 4, 64, 96, dtype=torch.bfloat16)
+        plan_flash_attention(odd, odd, odd)                # dh = 96
+    with pytest.raises(TypeError):
+        h = q.half()
+        plan_flash_attention(h, h, h)
+    with pytest.raises(TypeError):
+        plan_flash_attention(q, q.float(), q)              # mixed dtypes
+    with pytest.raises(ValueError):
+        plan_flash_attention(q, q, q, window=-1)

@@ -188,5 +188,5 @@ def test_library_path_is_keyed_on_the_sources():
     assert path == cuda_lib.library_path()
     names = {p.name for p in cuda_lib.CSRC.glob("*.cu")}
     assert names == {"window_filter.cu", "sfc_encode.cu",
-                     "flash_attention.cu"}
+                     "flash_attention.cu", "flash_attention_tc.cu"}
     assert "arch=compute_90a,code=sm_90a" in cuda_lib.NVCC_FLAGS
