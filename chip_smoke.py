@@ -6,10 +6,13 @@ CUDA card and the CUDA toolkit (`nvcc`); it fails without them and prints
 no result.  Phases, each printing one JSON line:
 
 1. set-up: builds the CUDA kernels from `src/repro_torch/csrc/` into
-   `build/repro_torch/`, prints the card's name and power limit, and
-   records for each flash kernel the registers, static shared memory and
-   spills that `ptxas -v` reports and whether the bf16 kernel's SASS holds
-   `HGMMA` (tensor-core) instructions (`cuobjdump -sass`);
+   `build/repro_torch/`, prints the card's name and power limit, reads its
+   SMs and maximum SM clock (the integer peak, 64 int32 operations an SM a
+   clock), and records for each flash and encode kernel instantiation the
+   registers, static shared memory and spills that `ptxas -v` reports,
+   whether the bf16 kernel's SASS holds `HGMMA` (tensor-core) instructions
+   and how many SASS instructions each encode instantiation has
+   (`cuobjdump -sass`);
 2. smbo: curve learning (SMBO, Algorithm 1) on the card through
    `learn_sfc`, on a 5% sample of each path's data with 100 sampled
    queries: a global curve for the main path (d=2, K=32) and a depth-2
@@ -17,14 +20,16 @@ no result.  Phases, each printing one JSON line:
    against the same run on the encode kernel's plain twin, its best
    candidates against the host's `batched` evaluator, and its learned
    cost against the z-order anchor; every round must launch the pooled
-   encode kernel;
+   encode kernel k_maxsplit + 2 times (keys, one a split level, z-ranges);
 3. kernels: each kernel against its plain-torch twin on the card, bit for
    bit, with times and bounds, at the shapes its path gives it and at a
-   larger one;
+   larger one (the encode also at the 256-point call the path made before
+   its split ran once a batch);
 4. main path: a 10M-row OSM-like index (d=2, K=32, heuristic paging) under
    the learned global curve, served on the card, Count and Range batches
-   through the CUDA kernels, held bit for bit against the plain-torch
-   backend on the card and against brute force;
+   through the CUDA kernels (k_maxsplit + 1 encode launches a batch), held
+   bit for bit against the plain-torch backend on the card and against
+   brute force;
 5. piecewise path: a 1M-row NYC-like index (d=3) under the learned
    piecewise curve, held the same way;
 6. kernels_flash: the two flash attention kernels against their plain
@@ -66,7 +71,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
-INT_OPS_PER_S = 67e12          # H100 SXM non-tensor 32-bit peak (data sheet)
+INT32_OPS_PER_SM_CLOCK = 64    # sm_90: 64 int32 ALU ops an SM a clock
 FLOPS_PER_S = {"float32": 67e12,      # non-tensor float32 (data sheet)
                "bfloat16": 989e12}    # dense bf16 tensor cores (data sheet)
 BATCH = 256                    # queries per served batch
@@ -191,10 +196,11 @@ def max_abs_err(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
-def bound(nbytes: float, ops: float) -> tuple:
-    """Least time in ms for the work, and which rate bounds it."""
+def bound(nbytes: float, ops: float, int_ops_per_s: float) -> tuple:
+    """Least time in ms for the work (`ops` integer operations), and which
+    rate bounds it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT_OPS_PER_S * 1e3
+    t_ops = ops / int_ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -203,16 +209,26 @@ def bound(nbytes: float, ops: float) -> tuple:
 # ---------------------------------------------------------------------------
 
 
-def phase_setup() -> str:
+def _smi(query: str) -> str:
+    smi = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_setup() -> dict:
+    """Builds the kernels; returns the card's name and power limit and its
+    integer peak (64 int32 operations an SM a clock at the maximum SM
+    clock)."""
     import torch
     from repro_torch.kernels import cuda_lib
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    card = smi.stdout.strip().splitlines()[0]
+    card = _smi("name,power.limit")
     print(card, flush=True)
+    clock = _smi("clocks.max.sm")
+    mhz = float(re.match(r"\s*([\d.]+)\s*MHz", clock).group(1))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    int_ops_per_s = INT32_OPS_PER_SM_CLOCK * sms * mhz * 1e6
     t0 = time.perf_counter()
     lib = cuda_lib.build()
     cuda_lib.library()
@@ -220,28 +236,40 @@ def phase_setup() -> str:
     log = lib.with_suffix(".log")
     ptxas = log.read_text() if log.exists() else ""
     print(ptxas, file=sys.stderr, flush=True)
+    flash_hgmma, encode_sass = sass_counts(lib)
     emit({"phase": "setup", "card": card, "build_s": build_s,
           "library": str(lib.relative_to(ROOT)),
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "python": sys.version.split()[0],
-          "flash_ptxas": flash_ptxas(ptxas), "flash_tc_hgmma": hgmma(lib)})
-    return card
+          "python": sys.version.split()[0], "sms": sms,
+          "sm_clock_max": clock, "int32_ops_per_s": int_ops_per_s,
+          "flash_ptxas": ptxas_entries(ptxas, FLASH_ENTRY, lambda m: {
+              "kernel": m.group(1),
+              "dtype": "float32" if m.group(2) else "bfloat16",
+              "dh": int(m.group(3))}),
+          "flash_tc_hgmma": flash_hgmma,
+          "encode_ptxas": ptxas_entries(ptxas, ENCODE_ENTRY, lambda m: {
+              "kernel": "sfc_encode_kernel",
+              "d": int(m.group(1)) or "any", "C": int(m.group(2)) or "any",
+              "table": "smem" if m.group(3) == "1" else "l1"}),
+          "encode_sass_instructions": encode_sass})
+    return {"card": card, "int_ops_per_s": int_ops_per_s}
 
 
 FLASH_ENTRY = re.compile(r"Compiling entry function '\S*?"
                          r"(flash_tc_kernel|flash_fwd_kernel)I(f?)Li(\d+)E")
+ENCODE_ENTRY = re.compile(r"Compiling entry function '\S*?"
+                          r"sfc_encode_kernelILi(\d+)ELi(\d+)ELb([01])E")
 
 
-def flash_ptxas(log: str) -> list:
-    """Registers, static shared memory and spill bytes of each flash
-    kernel instantiation, as `ptxas -v` reported them in the build log."""
+def ptxas_entries(log: str, entry: re.Pattern, label) -> list:
+    """Registers, static shared memory and spill bytes of each kernel
+    instantiation whose entry name matches `entry`, as `ptxas -v`
+    reported them in the build log; `label(match)` names it."""
     out, cur = [], None
     for line in log.splitlines():
-        m = FLASH_ENTRY.search(line)
+        m = entry.search(line)
         if m:
-            cur = {"kernel": m.group(1),
-                   "dtype": "float32" if m.group(2) else "bfloat16",
-                   "dh": int(m.group(3))}
+            cur = label(m)
             out.append(cur)
         elif cur is not None and "spill stores" in line:
             st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
@@ -256,24 +284,37 @@ def flash_ptxas(log: str) -> list:
     return out
 
 
-def hgmma(lib: Path):
-    """HGMMA (wgmma) instructions in the SASS of each bf16 flash kernel
-    instantiation, by head dim, or "not available" without `cuobjdump`."""
+SASS_INSTRUCTION = re.compile(r"/\*[0-9a-f]{4,}\*/\s+\S")
+
+
+def sass_counts(lib: Path) -> tuple:
+    """From the library's SASS (`cuobjdump -sass`): the HGMMA (wgmma)
+    instructions of each bf16 flash kernel instantiation, by head dim, and
+    the instructions of each `sfc_encode_kernel` instantiation, by its
+    template arguments (d, C, staged); "not available" without
+    `cuobjdump`."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
-        return "not available"
+        return "not available", "not available"
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, timeout=300)
     if sass.returncode != 0:
-        return f"not available ({sass.stderr.strip()[:120]})"
-    counts, dh = {}, None
+        why = f"not available ({sass.stderr.strip()[:120]})"
+        return why, why
+    hgmma, encode, dh, enc = {}, {}, None, None
     for line in sass.stdout.splitlines():
         if "Function :" in line:
             m = re.search(r"flash_tc_kernelILi(\d+)E", line)
             dh = m.group(1) if m else None
+            m = re.search(r"sfc_encode_kernelILi(\d+)ELi(\d+)ELb([01])E",
+                          line)
+            enc = (f"d{m.group(1)}_C{m.group(2)}_"
+                   f"{'smem' if m.group(3) == '1' else 'l1'}" if m else None)
         elif dh is not None and "HGMMA" in line:
-            counts[dh] = counts.get(dh, 0) + 1
-    return counts
+            hgmma[dh] = hgmma.get(dh, 0) + 1
+        elif enc is not None and SASS_INSTRUCTION.search(line):
+            encode[enc] = encode.get(enc, 0) + 1
+    return hgmma, encode
 
 
 # ---------------------------------------------------------------------------
@@ -283,14 +324,17 @@ def hgmma(lib: Path):
 
 class _SmboClock:
     """Wraps the SMBO path's stages for one `learn_sfc` run: seconds in the
-    host index builds, the surrogate, the shared-point encode, the pool
-    pack + upload and the pooled program (each device stage ends in a
-    synchronize), plus, per BatchEval round, the engine `auto` chose and
-    the pooled-encode launches."""
+    host index builds, the surrogate, the round's curve pool (packed,
+    uploaded and its lookup tables built, once), the shared-point encode,
+    the index pack + upload and the pooled program (each device stage ends
+    in a synchronize), plus, per BatchEval round, the engine `auto` chose,
+    the pooled-encode launches and the device stages' seconds."""
+
+    DEVICE_STAGES = ("tables", "encode", "pack", "program")
 
     def __init__(self):
-        self.s = {k: 0.0 for k in ("build", "surrogate", "encode", "pack",
-                                   "program")}
+        self.s = {k: 0.0 for k in ("build", "surrogate",
+                                   *self.DEVICE_STAGES)}
         self.rounds = []
         self._saved = []
 
@@ -317,6 +361,7 @@ class _SmboClock:
         self._wrap(LMSFCIndex, "build", "build", static=True)
         self._wrap(RandomForest, "fit", "surrogate")
         self._wrap(RandomForest, "predict", "surrogate")
+        self._wrap(cost, "device_curve_pool", "tables", sync=True)
         self._wrap(cost, "pool_keys", "encode", sync=True)
         self._wrap(batcheval, "_pack_index_pool", "pack", sync=True)
         self._wrap(batcheval, "_pool_program", "program", sync=True)
@@ -330,10 +375,13 @@ class _SmboClock:
 
         def one_round(cs, *a, **kw):
             before = cuda_lib.LAUNCHES["sfc_encode_pool"]
+            s0 = dict(self.s)
             self.rounds.append({"candidates": len(cs)})
             out = evaluate_pool(cs, *a, **kw)
             self.rounds[-1]["sfc_encode_pool"] = (
                 cuda_lib.LAUNCHES["sfc_encode_pool"] - before)
+            self.rounds[-1]["seconds"] = {k: self.s[k] - s0[k]
+                                          for k in self.DEVICE_STAGES}
             return out
         cost.run_workload_pool = run_workload_pool
         smbo.evaluate_pool = one_round
@@ -401,8 +449,10 @@ def phase_smbo(name: str, data, *, K: int, space: str, depth: int,
         check(r.get("engine") == "torch",
               f"{name}: round {i} took the {r.get('engine')!r} engine, not "
               f"the device program")
-        check(r["sfc_encode_pool"] > 0,
-              f"{name}: round {i} launched no sfc_encode_pool")
+        check(r["sfc_encode_pool"] == cfg.k_maxsplit + 2,
+              f"{name}: round {i} launched sfc_encode_pool "
+              f"{r['sfc_encode_pool']} times, not {cfg.k_maxsplit + 2} (the "
+              f"keys, one a split level, one for the z-ranges)")
     check(launches["sfc_encode_pool"] > 0, f"{name}: no pooled launch")
 
     t0 = time.perf_counter()
@@ -430,7 +480,7 @@ def phase_smbo(name: str, data, *, K: int, space: str, depth: int,
     last = [c for c, _ in res.evaluated[-4:]]
     prof = profile_batch(lambda: evaluate_pool(last, sample, Ls, Us, cfg, K))
 
-    device_s = clock.s["encode"] + clock.s["pack"] + clock.s["program"]
+    device_s = sum(clock.s[k] for k in clock.DEVICE_STAGES)
     out = {
         "phase": name, "space": space, "depth": depth, "rows": len(data),
         "sample_rows": int(len(sample)), "queries": int(len(Ls)),
@@ -444,7 +494,7 @@ def phase_smbo(name: str, data, *, K: int, space: str, depth: int,
                     "surrogate": clock.s["surrogate"],
                     "device_eval": device_s,
                     "device_eval_parts": {k: clock.s[k] for k in
-                                          ("encode", "pack", "program")},
+                                          clock.DEVICE_STAGES},
                     "rest": total_s - device_s - clock.s["build"]
                     - clock.s["surrogate"]},
         "twin_run_s": twin_s, "twin_identical": True,
@@ -481,7 +531,7 @@ def _filter_inputs(rng, G: int, d: int, cap: int, dev):
 
 
 def _hold_kernel(name: str, fn, ref, args, nbytes: float, ops: float,
-                 plain_iters: int = 20) -> dict:
+                 int_ops_per_s: float, plain_iters: int = 20) -> dict:
     """`fn` (the kernel's wrapper) against `ref` (its plain twin) on the
     same card inputs: bit-equality, then both timed, and the bound."""
     import torch
@@ -490,28 +540,54 @@ def _hold_kernel(name: str, fn, ref, args, nbytes: float, ops: float,
     torch.cuda.synchronize()
     err = max_abs_err(got, want)
     check(err == 0, f"{name} disagrees with its plain twin (max {err})")
-    b_ms, b_by = bound(nbytes, ops)
+    b_ms, b_by = bound(nbytes, ops, int_ops_per_s)
     plain = kernel_times(lambda: ref(*args), iters=plain_iters)
     return {"max_abs_err": err,
             **kernel_times(lambda: fn(*args), one_launch=True),
             "plain_ms": plain["ms"], "plain_wall_ms": plain["wall_ms"],
-            "bound_ms": b_ms, "bound_by": b_by}
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
 
 
-def phase_kernels(main_curve, pw_curve) -> dict:
-    """Each kernel at two shapes: "path", the largest call the main path
-    makes (a q_chunk of queries times max_cand pages for the filter; the
-    last split step's corner points for the encode), and "large" (the
-    filter at 64 candidates per query, the encode over 2^20 points)."""
+def encode_work(n: int, d: int, K: int, R: int, M: int, P: int = 1,
+                shared: bool = True) -> int:
+    """The bytes an encode of n points under P curves must move: the points
+    in once (once per pool when shared), the Z64 out once per curve, and
+    each curve's own data once, its R*d*K bit positions and M live region
+    bits (4 bytes each).  The kernel's lookup tables (R*d*C*128 bytes a
+    curve) are derived from the positions by this design, so they are not
+    counted; they stand beside the row as `table_bytes`."""
+    return ((1 if shared else P) * n * d * 4 + P * n * 8
+            + P * (R * d * K + M) * 4)
+
+
+def encode_shapes(d: int, q_chunk_queries: int, batch: int) -> dict:
+    """Points of the encode calls: `path256` the largest call when the
+    split ran per q_chunk with one call per corner set (the path's
+    earlier shape), `path` the largest now that a batch's split runs at once and
+    pairs both corner sets (the last split level's 2·Q·2^(k-1)·d corners,
+    or both z-range corners of 2·Q·2^k sub-queries), and 2^20."""
+    level = 2 * batch * 2**(K_MAXSPLIT - 1) * d
+    zr = 2 * batch * 2**K_MAXSPLIT
+    return {"path256": q_chunk_queries * 2**(K_MAXSPLIT - 1) * d,
+            "path": max(level, zr), "zranges": zr, "large": 2**20}
+
+
+def phase_kernels(main_curve, pw_curve, int_ops_per_s: float) -> dict:
+    """Each kernel at the shapes its path gives it and a larger one: the
+    filter at "path", a q_chunk of queries times max_cand pages, and
+    "large", 64 candidates per query; the encode at `encode_shapes`.  The
+    encode rows are bounded by their bytes (`encode_work`)."""
     import numpy as np
     import torch
-    from repro_torch.kernels.sfc_encode.ops import sfc_encode
+    from repro_torch.core.curve import curve_tables
+    from repro_torch.kernels.sfc_encode.ops import plan_encode, sfc_encode
     from repro_torch.kernels.sfc_encode.ref import sfc_encode_ref
     from repro_torch.kernels.window_filter.ops import (window_filter,
                                                        window_match)
     from repro_torch.kernels.window_filter.ref import (window_filter_ref,
                                                        window_match_ref)
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rng = np.random.default_rng(7)
     out = {"window_filter": {}, "window_match": {}}
 
@@ -526,40 +602,49 @@ def phase_kernels(main_curve, pw_curve) -> dict:
             out[name][shape] = {
                 "shape": [G, d, cap],
                 **_hold_kernel(name, fn, ref, (pts, rect, size),
-                               in_bytes + out_bytes, 2.0 * valid * d)}
+                               in_bytes + out_bytes, 2.0 * valid * d,
+                               int_ops_per_s)}
 
     out["sfc_encode"] = {}
     for kind, curve in (("global", main_curve), ("piecewise", pw_curve)):
         K, T = curve.K, curve.d * curve.K
         R = 1 if kind == "global" else curve.num_regions
-        for shape, n in (("path", Q_CHUNK * 2**(K_MAXSPLIT - 1) * curve.d),
-                         ("large", 2**20)):
+        M = int((curve_tables(curve, "cpu")[1] < T).sum())
+        for shape, n in encode_shapes(curve.d, Q_CHUNK, BATCH).items():
             x = rng.integers(0, 2**K, size=(n, curve.d), dtype=np.uint64)
             x[:8] = 2**K - 1                   # the sign bit at K = 32
             xt = torch.from_numpy(x.astype(np.uint32).view(np.int32)).to(dev)
-            nbytes = n * curve.d * 4 + n * 8 + R * T * 4
+            plan = plan_encode(n, 1, R, curve.d, K, sms)
             out["sfc_encode"][f"{kind}_{shape}"] = {
                 "shape": [n, curve.d], "K": K, "regions": R,
-                **_hold_kernel(f"sfc_encode[{kind}]",
+                "placement": plan.placement, "blocks": plan.blocks,
+                "table_bytes": plan.table_bytes,
+                **_hold_kernel(f"sfc_encode[{kind}_{shape}]",
                                lambda x: sfc_encode(x, curve),
                                lambda x: sfc_encode_ref(x, curve), (xt,),
-                               nbytes, 3.0 * n * T, plain_iters=5)}
+                               encode_work(n, curve.d, K, R, M), 0,
+                               int_ops_per_s, plain_iters=5)}
     emit({"phase": "kernels", **out})
     return out
 
 
-def phase_pool_kernel(smbo_runs: dict) -> dict:
+def phase_pool_kernel(smbo_runs: dict, int_ops_per_s: float) -> dict:
     """`sfc_encode_pool` against its twin at the SMBO path's shapes: the
     shared-point launch of the first round (its 8 curves over the whole
-    sample) and the largest per-candidate launch of a 4-curve round (the
-    last split's corners, Q·2^(k-1)·d points each); and at a larger shape,
-    a 16-curve pool over 2^20 shared points."""
+    sample) and the largest per-candidate launch of a 4-curve round (both
+    corner sets of the last split level, 2·Q·2^(k-1)·d points each, or both
+    z-range corners, 2·Q·2^k); and at a larger shape, a 16-curve pool over
+    2^20 shared points.  The pool's lookup tables are built once, before
+    the timed calls, as the pooled evaluator builds them once a round."""
     import numpy as np
     import torch
     from repro_torch.core.curve import CurvePool, pack_curve_pool
-    from repro_torch.kernels.sfc_encode.ops import sfc_encode_pool
+    from repro_torch.core.sfc import lut_tables
+    from repro_torch.kernels.sfc_encode.ops import (plan_encode,
+                                                    sfc_encode_pool)
     from repro_torch.kernels.sfc_encode.ref import sfc_encode_pool_ref
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rng = np.random.default_rng(11)
     as_dev = lambda a: torch.from_numpy(np.ascontiguousarray(
         a.astype(np.uint32).view(np.int32))).to(dev)
@@ -567,7 +652,8 @@ def phase_pool_kernel(smbo_runs: dict) -> dict:
     for kind, run in smbo_runs.items():
         sample = run["sample"]
         d, K = sample.shape[1], run["K"]
-        corners = run["n_queries"] * 2**(K_MAXSPLIT - 1) * d
+        Q = run["n_queries"]
+        corners = max(2 * Q * 2**(K_MAXSPLIT - 1) * d, 2 * Q * 2**K_MAXSPLIT)
         shapes += [(f"{kind}_shared_path", run["pools"]["first"],
                     as_dev(sample)),
                    (f"{kind}_per_candidate_path", run["pools"]["last"],
@@ -581,17 +667,21 @@ def phase_pool_kernel(smbo_runs: dict) -> dict:
         pool = pack_curve_pool(curves)
         pos = torch.from_numpy(pool.pos).to(dev)
         reg = torch.from_numpy(pool.reg).to(dev)
-        tables = CurvePool(pos=pos, reg=reg, d=pool.d, K=pool.K)
+        tables = CurvePool(pos=pos, reg=reg, d=pool.d, K=pool.K,
+                           lut=lut_tables(pos, pool.d, pool.K))
         P, R, T = pos.shape
         n = x.shape[-2]
-        nbytes = x.numel() * 4 + P * n * 8 + (pos.numel() + reg.numel()) * 4
+        M = int((reg < T).sum(1).max())
+        nbytes = encode_work(n, pool.d, pool.K, R, M, P, shared=x.dim() == 2)
+        plan = plan_encode(n, P, R, pool.d, pool.K, sms)
         out[shape] = {
             "shape": ([P] if x.dim() == 2 else []) + list(x.shape),
-            "K": pool.K, "regions": R,
+            "K": pool.K, "regions": R, "placement": plan.placement,
+            "blocks": plan.blocks, "table_bytes": plan.table_bytes,
             **_hold_kernel(f"sfc_encode_pool[{shape}]",
                            lambda x: sfc_encode_pool(x, tables),
                            lambda x: sfc_encode_pool_ref(x, tables), (x,),
-                           nbytes, 3.0 * P * n * T, plain_iters=2)}
+                           nbytes, 0, int_ops_per_s, plain_iters=2)}
     emit({"phase": "kernels_pool", "sfc_encode_pool": out})
     return out
 
@@ -717,6 +807,11 @@ def _hold_path(name: str, data, index, curve, n_batches: int, seed: int,
         "count": {k: after_count[k] / n_batches for k in launches},
         "range": {k: (launches[k] - after_count[k]) / n_batches
                   for k in launches}}
+    for kind in ("count", "range"):
+        check(per_batch[kind]["sfc_encode"] == K_MAXSPLIT + 1,
+              f"{name}: {per_batch[kind]['sfc_encode']} sfc_encode launches "
+              f"a {kind} batch, not {K_MAXSPLIT + 1} (one a split level, one "
+              f"for the z-ranges)")
     res = {
         "phase": name, "rows": int(index.n), "d": int(index.d),
         "K": int(index.K), "curve": curve.kind, "pages": int(index.num_pages),
@@ -1078,7 +1173,7 @@ def main(argv=None) -> int:
         return 2
     from repro_torch.data.synth import make_dataset
 
-    phase_setup()
+    int_ops_per_s = phase_setup()["int_ops_per_s"]
     t0 = time.perf_counter()
     osm = make_dataset("osm", args.osm_rows, seed=0)
     nyc = make_dataset("nyc", args.nyc_rows, seed=1)
@@ -1094,8 +1189,8 @@ def main(argv=None) -> int:
                                 seed=args.seed + 1, width_scale=0.05)}
     main_curve = smbo["global"]["curve"]
     pw_curve = smbo["piecewise"]["curve"]
-    kern = phase_kernels(main_curve, pw_curve)
-    kern["sfc_encode_pool"] = phase_pool_kernel(smbo)
+    kern = phase_kernels(main_curve, pw_curve, int_ops_per_s)
+    kern["sfc_encode_pool"] = phase_pool_kernel(smbo, int_ops_per_s)
     main_res = phase_main(osm, args.batches, main_curve)
     pw_res = phase_piecewise(nyc, args.batches, pw_curve)
     del osm, nyc
@@ -1127,6 +1222,8 @@ def main(argv=None) -> int:
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": library_ms}
+        if name.startswith("sfc_encode"):
+            row.update(shape=k["shape"], placement=k["placement"])
         if pw_path is not None:
             row["piecewise_launches"] = pw_path["launches"][name]
         if off_path:

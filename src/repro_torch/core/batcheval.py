@@ -32,12 +32,12 @@ import numpy as np
 import torch
 
 from ..kernels.sfc_encode.ops import sfc_encode_pool
-from .curve import CurvePool, pack_curve_pool
+from .curve import CurvePool, device_curve_pool
 from .device import resolve_device
 from .index import LMSFCIndex
 from .query import QueryStats, run_workload
-from .split import _split_once_enc, recursive_split_np_batch
-from .zorder64 import i32_of, u32_of, u64_to_z64, z64_key, z64_searchsorted
+from .split import _split_once_enc, recursive_split_np_batch, zrange_pairs
+from .zorder64 import u32_of, u64_to_z64, z64_key, z64_searchsorted
 
 # element budget per query chunk (bools/int64 intermediates); keeps the
 # (C, S, P) and (C, n) tensors comfortably in cache-friendly territory
@@ -141,14 +141,16 @@ def run_workload_batched(index: LMSFCIndex, Ls: np.ndarray, Us: np.ndarray):
 # reference maps one candidate at a time (`lax.map`); here the pool axis is
 # batched wherever the curve encode runs, so each encode of the program is
 # ONE `sfc_encode_pool` launch over all candidates (the curve layouts as
-# data), and the page masks are (P, Q, pages) tensors.  All device
-# arithmetic is integer (int64 order keys for Z64, unsigned 32-bit words held
-# in int64, bool mask algebra); the float cost combination happens on the
-# host from the returned integer stats, which is what makes the pooled costs
-# equal to the per-candidate paths to the last ulp.
+# data, their lookup tables built once per round): one per split level and
+# one for both z-range corners.  The page masks are (P, Q, pages) tensors.
+# All device arithmetic is integer (int64 order keys for Z64, unsigned
+# 32-bit words held in int64, bool mask algebra); the float cost
+# combination happens on the host from the returned integer stats, which is
+# what makes the pooled costs equal to the per-candidate paths to the last
+# ulp.
 #
 # Shape contract (pool axis leading; pages padded to the pool's maximum):
-#   pool                            — CurvePool, pos/reg as device tensors
+#   pool                            — CurvePool, pos/reg/lut on the device
 #   xs (P, n, d) int64              — page-ordered coords (unsigned values)
 #   row_page / sd_row (P, n) int64  — row -> page / page sort-dim per row
 #   sizes (P, Pmax) int64           — page sizes (0 past a candidate's pages)
@@ -171,10 +173,14 @@ class _PackedPool:
     n_pages: torch.Tensor
 
 
-def _pack_index_pool(indexes, device) -> _PackedPool:
+def _pack_index_pool(indexes, device, pool: CurvePool = None) -> _PackedPool:
     """Stack P candidate indexes (same rows, same d) into the padded pool
-    tensors above, on `device`."""
-    cp = pack_curve_pool([ix.curve for ix in indexes])
+    tensors above, on `device`; `pool` is their curves' `device_curve_pool`
+    when the caller built it already."""
+    if pool is None:
+        pool = device_curve_pool([ix.curve for ix in indexes], device)
+    if len(pool) != len(indexes):
+        raise ValueError(f"{len(pool)} curves for {len(indexes)} indexes")
     P, n, d = len(indexes), indexes[0].n, indexes[0].d
     Pmax = max(ix.num_pages for ix in indexes)
     xs32 = np.empty((P, n, d), np.int32)
@@ -202,8 +208,7 @@ def _pack_index_pool(indexes, device) -> _PackedPool:
                                                     output_size=n)
                             for p in range(P)])
     return _PackedPool(
-        pool=CurvePool(pos=up(cp.pos), reg=up(cp.reg), d=cp.d, K=cp.K),
-        xs=u32_of(up(xs32)), row_page=row_page,
+        pool=pool, xs=u32_of(up(xs32)), row_page=row_page,
         sd_row=torch.gather(sort_dims_t, 1, row_page), sizes=sizes_t,
         mbr_lo=up(mbr_lo), mbr_hi=up(mbr_hi), pzmin=up(u64_to_z64(pzmin)),
         pzmax=up(u64_to_z64(pzmax)), n_pages=up(n_pages))
@@ -235,8 +240,9 @@ def _pool_program(pk: _PackedPool, qL: torch.Tensor, qU: torch.Tensor,
     for _ in range(k):
         rects, valid = _split_once_enc(rects, valid, d, encode)
     S = rects.shape[1]
-    zlo = encode(i32_of(rects[..., 0])).reshape(P, Q * S, 2)
-    zhi = encode(i32_of(rects[..., 1])).reshape(P, Q * S, 2)
+    z = zrange_pairs(rects, encode)                     # (P·Q, 2, S, 2)
+    zlo = z[:, 0].reshape(P, Q * S, 2)
+    zhi = z[:, 1].reshape(P, Q * S, 2)
     last = (pk.n_pages - 1)[:, None]
     plo = torch.minimum(
         (z64_searchsorted(pk.pzmin, zlo, side="right") - 1).clamp(min=0),
@@ -290,15 +296,16 @@ def _pool_program(pk: _PackedPool, qL: torch.Tensor, qU: torch.Tensor,
 
 def run_workload_pool(indexes, Ls: np.ndarray, Us: np.ndarray,
                       engine: str = "torch", *, device=None,
-                      backend: str = "cuda"):
+                      backend: str = "cuda", pool: CurvePool = None):
     """Evaluate the same workload against P candidate indexes at once.
 
     Returns a list of per-candidate ``(counts, QueryStats)`` pairs, each
     bit-identical to `run_workload_batched(index, Ls, Us)` (and therefore to
     the legacy per-query evaluator).  ``engine="torch"`` runs the pooled
     program on `device` (CUDA unless the caller passes ``device="cpu"``;
-    `backend` picks the `sfc_encode_pool` kernel or its plain twin);
-    ``engine="np"`` is the numpy loop on the host."""
+    `backend` picks the `sfc_encode_pool` kernel or its plain twin;
+    `pool` is the candidates' `device_curve_pool` when the caller built
+    it already); ``engine="np"`` is the numpy loop on the host."""
     if engine not in ("torch", "np"):
         raise ValueError(f"unknown pool engine {engine!r}; "
                          f"expected 'torch' or 'np'")
@@ -323,7 +330,7 @@ def run_workload_pool(indexes, Ls: np.ndarray, Us: np.ndarray,
     dev = resolve_device(device)
     qL = torch.from_numpy(Ls.astype(np.uint32).astype(np.int64)).to(dev)
     qU = torch.from_numpy(Us.astype(np.uint32).astype(np.int64)).to(dev)
-    out = _pool_program(_pack_index_pool(indexes, dev), qL, qU, k,
+    out = _pool_program(_pack_index_pool(indexes, dev, pool), qL, qU, k,
                         backend).cpu().numpy()
     res = []
     for p in range(len(indexes)):

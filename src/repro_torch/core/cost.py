@@ -28,7 +28,7 @@ import torch
 
 from ..kernels.sfc_encode.ops import sfc_encode_pool
 from .batcheval import run_workload_batched, run_workload_pool
-from .curve import as_curve, pack_curve_pool
+from .curve import as_curve, device_curve_pool
 from .device import resolve_device
 from .index import IndexConfig, LMSFCIndex
 from .query import run_workload
@@ -100,11 +100,13 @@ def pool_keys(curves, data: np.ndarray, device,
               backend: str = "cuda") -> np.ndarray:
     """Every curve's uint64 keys of `data`, (P, n): the data sample encoded
     under the whole pool in one `sfc_encode_pool` launch (shared points),
-    where the per-candidate build would call `curve.encode_np(data)`."""
+    where the per-candidate build would call `curve.encode_np(data)`.
+    `curves`: a list of curves or a `CurvePool` (a `device_curve_pool`
+    carries its lookup tables)."""
     x = np.ascontiguousarray(
         np.asarray(data, dtype=np.uint64).astype(np.uint32).view(np.int32))
-    z = sfc_encode_pool(torch.from_numpy(x).to(device),
-                        pack_curve_pool(curves), backend=backend)
+    z = sfc_encode_pool(torch.from_numpy(x).to(device), curves,
+                        backend=backend)
     return z64_to_u64(z.cpu().numpy())
 
 
@@ -134,11 +136,13 @@ def evaluate_pool(curves, data: np.ndarray, Ls: np.ndarray, Us: np.ndarray,
     nq = len(np.atleast_2d(Ls))
     if engine == "auto":
         engine = auto_engine(len(curves), nq, len(data))
-    keys = (pool_keys(curves, data, dev, backend) if engine == "torch"
-            else [None] * len(curves))
+    pool, keys = None, [None] * len(curves)
+    if engine == "torch":           # the round's lookup tables, built once
+        pool = device_curve_pool(curves, dev)
+        keys = pool_keys(pool, data, dev, backend)
     idxs = [LMSFCIndex.build(data, curve=c, cfg=cfg, workload=(Ls, Us), K=K,
                              z=z) for c, z in zip(curves, keys)]
     results = run_workload_pool(idxs, Ls, Us, engine=engine, device=dev,
-                                backend=backend)
+                                backend=backend, pool=pool)
     return np.array([_stats_cost(agg, max(1, nq)) for _, agg in results],
                     dtype=np.float64)

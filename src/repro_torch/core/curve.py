@@ -39,7 +39,8 @@ Protocol surface
 encode_np / decode_np   — uint64 oracle (index construction, CPU engine)
 encode_scalar           — python-int single-point encode (split hot path)
 encode_torch            — (..., d) int32 -> (..., 2) int32 Z64 (device serving)
-curve_tables            — the curve as (pos, reg) data, for the CUDA kernel
+curve_tables            — the curve as (pos, reg) data (the plain encode)
+curve_lut               — its nibble lookup tables, for the CUDA kernel
 split_cut/split_cuts_np — Lemma-2 cut candidates (scalar + vectorized)
 optimal_1split          — best single split for the recursive splitter
 features/neighbors/random — the SMBO search surface
@@ -454,12 +455,16 @@ class CurvePool:
                       sentinel index T selects a constant-zero bit plane, so
                       global curves (and shallower quadtrees) pad with T and
                       keep region code 0
+      lut (P, R, d, C, 16) int64, optional — `sfc.lut_tables(pos, d, K)`,
+                      the CUDA kernel's nibble tables; a caller that encodes
+                      under one pool many times builds it once
     """
 
     pos: np.ndarray         # (P, R, T) int32
     reg: np.ndarray         # (P, M) int32
     d: int
     K: int
+    lut: object = None
 
     def __len__(self) -> int:
         return len(self.pos)
@@ -499,6 +504,17 @@ def pack_curve_pool(curves) -> CurvePool:
     return CurvePool(pos=pos, reg=reg, d=d, K=K)
 
 
+def device_curve_pool(curves, device) -> CurvePool:
+    """`pack_curve_pool` of `curves` with ``pos`` and ``reg`` on `device`
+    and its ``lut`` built there once, for a caller that encodes under one
+    pool many times (an SMBO round: the key encode, then every encode of
+    the pooled program)."""
+    cp = pack_curve_pool(curves)
+    pos = torch.as_tensor(cp.pos, device=device)
+    return CurvePool(pos=pos, reg=torch.as_tensor(cp.reg, device=device),
+                     d=cp.d, K=cp.K, lut=sfc_mod.lut_tables(pos, cp.d, cp.K))
+
+
 def curve_tables(curve, device) -> tuple:
     """One curve as data: its `pack_curve_pool` row, ``pos`` (R, T) and
     ``reg`` (M,) int32 tensors on `device`.  Cached on the curve object
@@ -510,6 +526,18 @@ def curve_tables(curve, device) -> tuple:
         pool = pack_curve_pool([curve])
         cache[key] = (torch.as_tensor(pool.pos[0], device=device),
                       torch.as_tensor(pool.reg[0], device=device))
+    return cache[key]
+
+
+def curve_lut(curve, device) -> torch.Tensor:
+    """The curve's nibble lookup tables (R, d, C, 16) int64 on `device`
+    (`sfc.lut_tables` of its ``pos``), cached beside `curve_tables`."""
+    curve = as_curve(curve)
+    cache = curve.__dict__.setdefault("_tables", {})
+    key = ("lut", str(torch.device(device)))
+    if key not in cache:
+        pos, _ = curve_tables(curve, device)
+        cache[key] = sfc_mod.lut_tables(pos, curve.d, curve.K)
     return cache[key]
 
 

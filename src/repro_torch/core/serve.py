@@ -1,9 +1,10 @@
 """Vectorized window-query serving on the device (torch/CUDA).
 
-The paper's per-query page walk is re-expressed as a static-shape pipeline,
-chunk by chunk over the query batch:
+The paper's per-query page walk is re-expressed as a static-shape pipeline
+(the split once for the whole batch, the rest chunk by chunk over it):
 
-  split      — recursive query splitting (§6.1), vectorized over (Q, 2^k)
+  split      — recursive query splitting (§6.1), vectorized over (Q, 2^k),
+               and the sub-queries' z-ranges
   prune      — page-level candidate mask: z-range overlap with any sub-query
                AND MBR intersection (metadata-only compares)
   contain    — pages whose MBR ⊆ query contribute size() with *no* gather
@@ -169,13 +170,10 @@ def _as_queries(arrays: ServingArrays, queries) -> torch.Tensor:
     return q
 
 
-def _live_pages(arrays: ServingArrays, queries, curve, k_maxsplit, backend):
+def _live_pages(arrays: ServingArrays, queries, valid, zlo, zhi):
     """Prune: (Qc, P) bool of pages whose z-range overlaps a live
-    sub-query and whose MBR intersects the query, plus the query/MBR
-    bounds for the containment test."""
-    rects, valid = recursive_split_torch(queries, curve, k_maxsplit,
-                                         backend=backend)
-    zlo, zhi = zranges_torch(rects, curve, backend=backend)  # (Qc, S, 2)
+    sub-query (valid (Qc, S), zlo/zhi (Qc, S, 2)) and whose MBR intersects
+    the query, plus the query/MBR bounds for the containment test."""
     pz_min = arrays.page_zmin                     # (P, 2)
     pz_max = arrays.page_zmax
     ov = (z64_le(zlo[:, :, None, :], pz_max[None, None]) &
@@ -224,14 +222,23 @@ def _gather(arrays: ServingArrays, queries, cand, n_cand, max_cand):
             size.reshape(-1).to(torch.int32).contiguous())
 
 
-def _chunks(queries: torch.Tensor, q_chunk: int):
-    """The batch in q_chunk pieces; an empty batch is one empty piece, so
-    it yields empty outputs of the right shapes, as the reference does."""
+def _chunks(arrays: ServingArrays, queries, curve, k_maxsplit: int,
+            q_chunk: int, backend: str) -> list:
+    """The batch in q_chunk pieces, each with its split state: (queries,
+    valid (Qc, S), zlo, zhi (Qc, S, 2)).  The split and the z-ranges run
+    once on the whole batch (one encode launch per split level and one for
+    the z-ranges); they are per query, so each piece's state is what its
+    own split would give.  An empty batch is one empty piece, so it yields
+    empty outputs of the right shapes, as the reference does."""
+    queries = _as_queries(arrays, queries)
     Q = queries.shape[0]
     if Q % q_chunk:
         raise ValueError(f"batch size {Q} is not a multiple of q_chunk="
                          f"{q_chunk}; pad with pack_query_rects")
-    return queries.split(q_chunk) if Q else (queries,)
+    rects, valid = recursive_split_torch(queries, curve, k_maxsplit,
+                                         backend=backend)
+    zlo, zhi = zranges_torch(rects, curve, backend=backend)
+    return list(zip(*(t.split(q_chunk) for t in (queries, valid, zlo, zhi))))
 
 
 def make_query_fn(curve, *, k_maxsplit: int = 4, max_cand: int = 64,
@@ -242,9 +249,8 @@ def make_query_fn(curve, *, k_maxsplit: int = 4, max_cand: int = 64,
     `curve` is any `MonotonicCurve` (legacy `Theta` values are coerced)."""
     curve = as_curve(curve)
 
-    def _chunk(arrays: ServingArrays, queries):
-        live, (qlo, qhi, mlo, mhi) = _live_pages(arrays, queries, curve,
-                                                 k_maxsplit, backend)
+    def _chunk(arrays: ServingArrays, queries, *split):
+        live, (qlo, qhi, mlo, mhi) = _live_pages(arrays, queries, *split)
         contained = torch.all(u32_le(qlo, mlo) & u32_le(mhi, qhi), dim=-1)
         full = live & contained
         partial = live & ~contained
@@ -262,8 +268,8 @@ def make_query_fn(curve, *, k_maxsplit: int = 4, max_cand: int = 64,
         return counts.to(torch.int32), overflow.to(torch.int32)
 
     def query_batch(arrays: ServingArrays, queries):
-        queries = _as_queries(arrays, queries)
-        outs = [_chunk(arrays, q) for q in _chunks(queries, q_chunk)]
+        outs = [_chunk(arrays, *piece) for piece in _chunks(
+            arrays, queries, curve, k_maxsplit, q_chunk, backend)]
         return (torch.cat([o[0] for o in outs]),
                 torch.cat([o[1] for o in outs]))
 
@@ -295,8 +301,8 @@ def make_range_fn(curve, *, k_maxsplit: int = 4, max_cand: int = 64,
     """
     curve = as_curve(curve)
 
-    def _chunk(arrays: ServingArrays, queries):
-        live, _ = _live_pages(arrays, queries, curve, k_maxsplit, backend)
+    def _chunk(arrays: ServingArrays, queries, *split):
+        live, _ = _live_pages(arrays, queries, *split)
         # ---- compact: top-C candidate pages ------------------------------
         pidx = torch.arange(live.shape[1], device=live.device)[None]
         cand, n_cand = _compact(live, pidx, max_cand, 0)
@@ -321,8 +327,8 @@ def make_range_fn(curve, *, k_maxsplit: int = 4, max_cand: int = 64,
             raise ValueError(
                 f"range retrieval needs pages*cap < 2^31 for int32 row "
                 f"ids; got {P_pad} pages x cap {cap}")
-        queries = _as_queries(arrays, queries)
-        outs = [_chunk(arrays, q) for q in _chunks(queries, q_chunk)]
+        outs = [_chunk(arrays, *piece) for piece in _chunks(
+            arrays, queries, curve, k_maxsplit, q_chunk, backend)]
         return tuple(torch.cat([o[i] for o in outs]) for i in range(4))
 
     return query_batch

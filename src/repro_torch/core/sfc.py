@@ -139,6 +139,25 @@ def encode_table_torch(x: torch.Tensor, pos: torch.Tensor,
     return torch.stack([i32_of(z >> 32), i32_of(z)], dim=-1)
 
 
+def lut_tables(pos: torch.Tensor, d: int, K: int) -> torch.Tensor:
+    """The CUDA `sfc_encode` kernel's nibble lookup tables from `pack_curve_
+    pool` position tables: pos (..., R, T) integer, T = d*K ->
+    (..., R, d, C, 16) int64, C = ceil(K / 4).  Entry [r, i, c, v] is the
+    64-bit word (two's complement) with bit j of v at pos[r, i*K + 4c + j];
+    bits with 4c + j >= K add nothing.  Exact: every bit lands in a distinct
+    position, so the int64 sum of shifted bits is their bitwise OR."""
+    pos = torch.as_tensor(pos).to(torch.int64)
+    lead = pos.shape[:-1]
+    C = -(-K // 4)
+    p = pos.reshape(*lead, d, K)
+    p = torch.cat([p, p.new_zeros(*lead, d, 4 * C - K)], dim=-1)
+    p = p.reshape(*lead, d, C, 1, 4)
+    j = torch.arange(4, device=pos.device)
+    bits = (torch.arange(16, device=pos.device)[:, None] >> j) & 1  # (16, 4)
+    live = (torch.arange(4 * C, device=pos.device) < K).reshape(C, 1, 4)
+    return ((bits * live) << p).sum(-1)                       # (..., d, C, 16)
+
+
 def encode_pool_torch(x: torch.Tensor, pos: torch.Tensor,
                       reg: torch.Tensor) -> torch.Tensor:
     """Data-driven encode under every curve of a pool; the plain-torch twin

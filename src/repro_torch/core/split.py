@@ -164,8 +164,10 @@ def _split_once_enc(rects, valid, d: int, encode):
     U_all = torch.where(eye, ((v - 1) & MASK32)[..., :, None],
                         qU[..., None, :])
     L_all = torch.where(eye, v[..., :, None], qL[..., None, :])
-    fU = encode(i32_of(U_all))  # (Q, S, d, 2)
-    fL = encode(i32_of(L_all))
+    # one encode for both corner sets, paired on axis 1 so the leading
+    # query (or candidate-major) axis stays first
+    f = encode(i32_of(torch.stack([U_all, L_all], dim=1)))  # (Q, 2, S, d, 2)
+    fU, fL = f[:, 0], f[:, 1]
     fUh, fUl = u32_of(fU[..., 0]), u32_of(fU[..., 1])
     fLh, fLl = u32_of(fL[..., 0]), u32_of(fL[..., 1])
     pos = ((fUh < fLh) | ((fUh == fLh) & (fUl < fLl))) & splittable
@@ -214,6 +216,13 @@ def recursive_split_torch(queries: torch.Tensor, curve, k_maxsplit: int = 4,
 
 
 def zranges_torch(rects: torch.Tensor, curve, backend: str = "cuda"):
-    """Z64 ranges for each sub-query: (zlo, zhi), each (..., 2) int32."""
-    encode = _encoder(as_curve(curve), backend)
-    return encode(i32_of(rects[..., 0])), encode(i32_of(rects[..., 1]))
+    """Z64 ranges for each sub-query of rects (Q, S, d, 2): (zlo, zhi),
+    each (Q, S, 2) int32, from one encode of both corners."""
+    z = zrange_pairs(rects, _encoder(as_curve(curve), backend))
+    return z[:, 0], z[:, 1]
+
+
+def zrange_pairs(rects: torch.Tensor, encode) -> torch.Tensor:
+    """Both corners of rects (Q, S, d, 2) in one `encode`, paired on axis 1
+    (low corner first): (Q, 2, S, 2) int32 Z64."""
+    return encode(i32_of(rects.movedim(-1, 1)))

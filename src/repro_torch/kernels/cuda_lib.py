@@ -37,12 +37,12 @@ _SIGNATURES = {
     # pts, rect, size, out, G, d, cap, stream
     "window_filter_launch": (_VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP),
     "window_match_launch": (_VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP),
-    # x, pos, reg, out, n, d, K, R, M, number of SMs, stream
+    # x, lut, reg, out, n, d, K, R, M, staged, blocks, stream
     "sfc_encode_launch": (_VP, _VP, _VP, _VP, _I64, _INT, _INT, _INT, _INT,
-                          _INT, _VP),
-    # x, x_stride, pos, reg, out, n, d, K, R, M, P, number of SMs, stream
+                          _INT, _INT, _VP),
+    # x, x_stride, lut, reg, out, n, d, K, R, M, P, staged, blocks, stream
     "sfc_encode_pool_launch": (_VP, _I64, _VP, _VP, _VP, _I64, _INT, _INT,
-                               _INT, _INT, _INT, _INT, _VP),
+                               _INT, _INT, _INT, _INT, _INT, _VP),
     # q, k, v, o, BH, BKH, S, dh, causal, window, stream (float32)
     "flash_attention_launch": (_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
                                _INT, _INT, _VP),

@@ -2,24 +2,99 @@
 
 ``backend="cuda"`` launches the CUDA kernel for CUDA tensors and uses the
 plain-torch twin only for CPU tensors; ``backend="torch"`` always uses the
-twin.  The curve reaches the kernel as data (`core.curve.curve_tables`,
-`pack_curve_pool`), so one compiled kernel serves global and piecewise
-curves alike, one curve or a whole pool.
+twin.  The curve reaches the kernel as data: its nibble lookup tables
+(`core.curve.curve_lut`, `core.sfc.lut_tables`) and region bits, so one
+compiled kernel serves global and piecewise curves alike, one curve or a
+whole pool.  `plan_encode` picks where the kernel reads the tables from.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-from ...core.curve import CurvePool, as_curve, curve_tables, pack_curve_pool
+from ...core.curve import CurvePool, as_curve, curve_lut, curve_tables
+from ...core.curve import pack_curve_pool
 from .. import cuda_lib
 from .ref import pool_tables, sfc_encode_pool_ref, sfc_encode_ref
 
 BACKENDS = ("cuda", "torch")
 
+# The kernel's launch shape and the H100's shared memory (csrc/sfc_encode.cu)
+THREADS = 256
+POINTS_PER_THREAD = 4
+BLOCKS_PER_SM = 8
+SMEM_PER_SM = 233_472          # 228 KB an SM
+MAX_STAGED_BYTES = 231_424     # 227 KB a block, less 1 KB of static arrays
+BLOCK_RESERVED_BYTES = 1_536   # the runtime's 1 KB a block + static arrays
+MAX_REGION_BITS = 30
+MAX_K = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class EncodePlan:
+    placement: str        # "smem" (staged with cp.async) or "l1" (__ldg)
+    blocks: int           # point blocks per curve (the grid's x)
+    table_bytes: int      # one curve's lookup tables
+
+
+def nibbles(K: int) -> int:
+    return -(-K // 4)
+
+
+def plan_encode(n: int, P: int, R: int, d: int, K: int,
+                sms: int) -> EncodePlan:
+    """Where the kernel reads a curve's R*d*C*128-byte table from, and its
+    grid, for n points under each of P curves on a card with `sms` SMs.
+    The table is staged in shared memory when it fits (measured faster than
+    L1 at every shape `bench.py` times, down to 256 points) and read
+    through L1 otherwise."""
+    table_bytes = R * d * nibbles(K) * 128
+    return _plan(n, P, table_bytes, table_bytes <= MAX_STAGED_BYTES, sms)
+
+
+def _plan(n: int, P: int, table_bytes: int, staged: bool,
+          sms: int) -> EncodePlan:
+    """The grid for a table staged or read through L1.  Blocks cover n at
+    THREADS * POINTS_PER_THREAD points each, capped at what the card holds
+    at once across the pool: 8 blocks an SM, or as many staged blocks as
+    its shared memory holds."""
+    per_sm = BLOCKS_PER_SM
+    if staged:
+        per_sm = min(per_sm,
+                     SMEM_PER_SM // (table_bytes + BLOCK_RESERVED_BYTES))
+    blocks = min(-(-n // (THREADS * POINTS_PER_THREAD)),
+                 max(1, sms * per_sm // P))
+    return EncodePlan("smem" if staged else "l1", max(1, blocks),
+                      table_bytes)
+
 
 def _check_backend(backend: str) -> None:
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}; got {backend!r}")
+
+
+def _check_tables(reg, lut, P: int, d: int, K: int) -> None:
+    """Raise unless reg (P, M) int32 and lut (P, R, d, C, 16) int64 are
+    contiguous CUDA tensors that the kernel takes."""
+    cuda_lib.check_cuda_int32("reg", reg, 2)
+    cuda_lib.check_cuda("lut", lut, torch.int64, 5)
+    if not 1 <= K <= MAX_K or d * K > 64:
+        raise ValueError(f"the kernel takes K <= {MAX_K} and d*K <= 64; "
+                         f"got d={d}, K={K}")
+    if reg.shape[0] != P or reg.shape[1] > MAX_REGION_BITS:
+        raise ValueError(f"reg must be ({P}, M <= {MAX_REGION_BITS}); got "
+                         f"{tuple(reg.shape)}")
+    if (lut.shape[0] != P or lut.shape[1] < 1
+            or tuple(lut.shape[2:]) != (d, nibbles(K), 16)):
+        raise ValueError(f"lut must be ({P}, R, {d}, {nibbles(K)}, 16); got "
+                         f"{tuple(lut.shape)}")
+    if lut.data_ptr() % 16:
+        raise ValueError("lut must be 16-byte aligned")
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def sfc_encode(x, curve, *, backend: str = "cuda"):
@@ -33,14 +108,16 @@ def sfc_encode(x, curve, *, backend: str = "cuda"):
     n, d = x.shape
     if d != curve.d:
         raise ValueError(f"x has {d} dims; the curve has {curve.d}")
-    pos, reg = curve_tables(curve, x.device)
-    R, T = pos.shape
+    _, reg = curve_tables(curve, x.device)
+    lut = curve_lut(curve, x.device)
+    _check_tables(reg[None], lut[None], 1, d, curve.K)
     out = torch.empty((n, 2), dtype=torch.int32, device=x.device)
     if n:
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        cuda_lib.launch("sfc_encode_launch", x.data_ptr(), pos.data_ptr(),
-                        reg.data_ptr(), out.data_ptr(), n, d, T // d, R,
-                        reg.shape[0], sms)
+        R = lut.shape[0]
+        plan = plan_encode(n, 1, R, d, curve.K, _sms(x.device))
+        cuda_lib.launch("sfc_encode_launch", x.data_ptr(), lut.data_ptr(),
+                        reg.data_ptr(), out.data_ptr(), n, d, curve.K, R,
+                        reg.shape[0], plan.placement == "smem", plan.blocks)
         cuda_lib.LAUNCHES["sfc_encode"] += 1
     return out
 
@@ -48,29 +125,31 @@ def sfc_encode(x, curve, *, backend: str = "cuda"):
 def sfc_encode_pool(x, curves, *, backend: str = "cuda"):
     """Candidate-batched encode: x (n, d) int32 shared by every curve, or
     (P, n, d) int32 with one point set per curve; `curves` a `CurvePool`
-    (numpy or tensor arrays) or a list of `MonotonicCurve`s sharing (d, K)
-    -> (P, n, 2) int32 Z64.  One launch encodes under every curve."""
+    (numpy or tensor arrays, its ``lut`` built here when it carries none)
+    or a list of `MonotonicCurve`s sharing (d, K) -> (P, n, 2) int32 Z64.
+    One launch encodes under every curve."""
     _check_backend(backend)
     pool = curves if isinstance(curves, CurvePool) else pack_curve_pool(
         curves)
     if backend == "torch" or x.device.type == "cpu":
         return sfc_encode_pool_ref(x, pool)
     cuda_lib.check_cuda_int32("x", x, 3 if x.dim() == 3 else 2)
-    pos, reg = pool_tables(pool, x.device)
-    cuda_lib.check_cuda_int32("pos", pos, 3)
-    cuda_lib.check_cuda_int32("reg", reg, 2)
-    P, R, T = pos.shape
+    reg, lut = pool_tables(pool, x.device)
+    P = len(pool)
     n, d = x.shape[-2:]
     if x.dim() == 3 and x.shape[0] != P:
         raise ValueError(f"x has {x.shape[0]} point sets for {P} curves")
     if d != pool.d:
         raise ValueError(f"x has {d} dims; the pool's curves have {pool.d}")
+    _check_tables(reg, lut, P, d, pool.K)
     out = torch.empty((P, n, 2), dtype=torch.int32, device=x.device)
     if n and P:
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        R = lut.shape[1]
+        plan = plan_encode(n, P, R, d, pool.K, _sms(x.device))
         x_stride = n * d if x.dim() == 3 else 0
         cuda_lib.launch("sfc_encode_pool_launch", x.data_ptr(), x_stride,
-                        pos.data_ptr(), reg.data_ptr(), out.data_ptr(), n, d,
-                        T // d, R, reg.shape[1], P, sms)
+                        lut.data_ptr(), reg.data_ptr(), out.data_ptr(), n, d,
+                        pool.K, R, reg.shape[1], P, plan.placement == "smem",
+                        plan.blocks)
         cuda_lib.LAUNCHES["sfc_encode_pool"] += 1
     return out

@@ -30,8 +30,10 @@ from repro_torch.data.workload import make_workload
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.flash_attention.ops import KERNELS, flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_tc_ref, mha_ref
+from repro_torch.kernels.sfc_encode import ops as sfc_ops
 from repro_torch.kernels.sfc_encode.ops import sfc_encode, sfc_encode_pool
-from repro_torch.kernels.sfc_encode.ref import (sfc_encode_pool_ref,
+from repro_torch.kernels.sfc_encode.ref import (lut_tables,
+                                                sfc_encode_pool_ref,
                                                 sfc_encode_ref)
 from repro_torch.kernels.window_filter.ops import window_filter, window_match
 from repro_torch.kernels.window_filter.ref import (window_filter_ref,
@@ -80,8 +82,8 @@ def test_window_kernels_match_twins(cuda_device, G, d, cap):
                                             (3, "piecewise", 2),
                                             (4, "piecewise", 2)])
 def test_sfc_encode_kernel_matches_twin(cuda_device, d, family, depth):
-    """(4, piecewise, 2) has 256 regions: its 64 KB position table is
-    read from global memory instead of shared memory."""
+    """(4, piecewise, 2) has 256 regions: its 524,288-byte lookup table is
+    read through L1 instead of shared memory."""
     K = 32 if d == 2 else default_K(d)
     curve = tc.random_curve(np.random.default_rng(3), d, K, family=family,
                             depth=depth)
@@ -92,6 +94,118 @@ def test_sfc_encode_kernel_matches_twin(cuda_device, d, family, depth):
     torch.cuda.synchronize()
     assert cuda_lib.LAUNCHES["sfc_encode"] == before + 1
     assert torch.equal(got.cpu(), sfc_encode_ref(torch.from_numpy(xs), curve))
+
+
+@pytest.mark.parametrize("d,K,family,depth,n,placement", [
+    (2, 32, "global", 1, 300, "smem"),  # sign bit; one 8-byte load a point
+    (2, 32, "piecewise", 2, 70001, "smem"),
+    (3, 21, "piecewise", 2, 5000, "smem"),    # 64 regions: 147,456 bytes
+    (4, 16, "piecewise", 1, 4097, "smem"),
+    (5, 12, "global", 1, 1000, "smem"),   # any d: coordinates one by one
+    (2, 32, "piecewise", 4, 70001, "l1"),     # 256 regions: 524,288 bytes
+    (3, 21, "piecewise", 3, 5000, "l1"),      # 512 regions: 1,179,648
+    (4, 16, "piecewise", 2, 4097, "l1"),      # 256 regions: 524,288
+    (5, 12, "piecewise", 2, 1000, "l1"),      # 1,024 regions: 1,966,080
+])
+def test_sfc_encode_kernel_matches_twin_in_both_placements(
+        cuda_device, d, K, family, depth, n, placement):
+    """The lookup tables staged in shared memory (up to 227 KB) and read
+    through L1 (larger ones) give the twin's words bit for bit, in every
+    compiled (d, C) and the general one; at d 2 a point set that starts 4
+    bytes off an 8-byte boundary takes the kernel's one-by-one loads."""
+    curve = tc.random_curve(np.random.default_rng(d + depth), d, K,
+                            family=family, depth=depth)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    R = curve.num_regions if family == "piecewise" else 1
+    assert sfc_ops.plan_encode(n, 1, R, d, K, sms).placement == placement
+    xs = np.random.default_rng(n).integers(0, 2**K, size=(n, d),
+                                           dtype=np.uint64)
+    xs[:5] = 2**K - 1
+    x = torch.from_numpy(_i32(xs))
+    before = cuda_lib.LAUNCHES["sfc_encode"]
+    got = sfc_encode(x.to(cuda_device), curve)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["sfc_encode"] == before + 1
+    assert torch.equal(got.cpu(), sfc_encode_ref(x, curve))
+    if d == 2:
+        flat = x.reshape(-1).to(cuda_device)
+        off = flat[1:1 + 2 * (n - 1)].view(n - 1, 2)
+        assert off.data_ptr() % 8 == 4
+        want = sfc_encode_ref(x.reshape(-1)[1:1 + 2 * (n - 1)].view(n - 1, 2),
+                              curve)
+        assert torch.equal(sfc_encode(off, curve).cpu(), want)
+
+
+@pytest.mark.parametrize("depth,placement", [(2, "smem"), (3, "l1")])
+def test_sfc_encode_pool_kernel_matches_twin_in_both_placements(
+        cuda_device, depth, placement):
+    """A d 3 pool of piecewise curves and global ones, points shared and
+    per candidate, its tables carried: at depth 2 its 147,456-byte tables
+    are staged, at depth 3 its 1,179,648-byte ones read through L1."""
+    d, K = 3, 21
+    curves = [tc.random_curve(np.random.default_rng(20 + i), d, K,
+                              family="piecewise" if i % 3 else "global",
+                              depth=depth) for i in range(5)]
+    pool = tc.pack_curve_pool(curves)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert sfc_ops.plan_encode(20000, 5, pool.pos.shape[1], d, K,
+                               sms).placement == placement
+    pos = torch.from_numpy(pool.pos).to(cuda_device)
+    carried = tc.CurvePool(pos=pos, reg=torch.from_numpy(pool.reg).to(
+        cuda_device), d=d, K=K, lut=lut_tables(pos, d, K))
+    rng = np.random.default_rng(5)
+    for shape in ((20000, d), (5, 3001, d)):
+        x = torch.from_numpy(_i32(rng.integers(0, 2**K, size=shape,
+                                               dtype=np.uint64)))
+        want = sfc_encode_pool_ref(x, pool)
+        for p in (pool, carried):
+            got = sfc_encode_pool(x.to(cuda_device), p)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want)
+
+
+def test_sfc_encode_pool_of_more_curves_than_resident_blocks(cuda_device):
+    """More curves than SMs x 8: every curve still gets one block."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    P = sms * 8 + 37
+    curves = [tc.random_curve(np.random.default_rng(i), 2, 32)
+              for i in range(P)]
+    pool = tc.pack_curve_pool(curves)
+    rng = np.random.default_rng(6)
+    for shape in ((300, 2), (P, 70, 2)):
+        x = torch.from_numpy(_i32(rng.integers(0, 2**32, size=shape,
+                                               dtype=np.uint64)))
+        got = sfc_encode_pool(x.to(cuda_device), pool)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), sfc_encode_pool_ref(x, pool))
+
+
+def test_sfc_encode_wrappers_reject_tables_the_kernel_does_not_take(
+        cuda_device):
+    d, K = 2, 32
+    curves = [tc.random_curve(np.random.default_rng(i), d, K,
+                              family="piecewise") for i in range(3)]
+    pool = tc.pack_curve_pool(curves)
+    pos = torch.from_numpy(pool.pos).to(cuda_device)
+    reg = torch.from_numpy(pool.reg).to(cuda_device)
+    lut = lut_tables(pos, d, K)
+    x = torch.zeros((64, d), dtype=torch.int32, device=cuda_device)
+    flat = torch.zeros(lut.numel() + 1, dtype=torch.int64, device=cuda_device)
+    for bad, err in ((lut[..., :-1, :], ValueError),        # wrong C
+                     (lut[1:], ValueError),                  # wrong P
+                     (lut.int(), TypeError),
+                     (lut.transpose(3, 4), ValueError),      # not contiguous
+                     (flat[1:].view(lut.shape), ValueError)):  # 8 B off
+        with pytest.raises(err):
+            sfc_encode_pool(x, tc.CurvePool(pos=pos, reg=reg, d=d, K=K,
+                                            lut=bad))
+    wide = torch.zeros((3, 31), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="reg"):
+        sfc_encode_pool(x, tc.CurvePool(pos=pos, reg=wide, d=d, K=K,
+                                        lut=lut))
+    with pytest.raises(ValueError, match="dims"):
+        sfc_encode(torch.zeros((8, 3), dtype=torch.int32,
+                               device=cuda_device), curves[0])
 
 
 @pytest.mark.parametrize("family", ["global", "piecewise"])
@@ -158,7 +272,8 @@ def test_evaluate_pool_on_card_matches_host(cuda_device, family, depth):
                               depth=depth) for i in range(5)]
     before = cuda_lib.LAUNCHES["sfc_encode_pool"]
     got = evaluate_pool(curves, data, Ls, Us, cfg, engine="torch")
-    assert cuda_lib.LAUNCHES["sfc_encode_pool"] == before + 11
+    # the keys, one a split level (k = 4), one for the z-ranges
+    assert cuda_lib.LAUNCHES["sfc_encode_pool"] == before + 6
     twin = evaluate_pool(curves, data, Ls, Us, cfg, engine="torch",
                          backend="torch")
     host = evaluate_pool(curves, data, Ls, Us, cfg, engine="torch",

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro.core import curve as rc
+from repro.core import sfc as rsfc
 from repro.core.theta import default_K
 from repro.kernels.sfc_encode.ops import sfc_encode as r_sfc_encode
 from repro.kernels.sfc_encode.ops import sfc_encode_pool as r_sfc_encode_pool
@@ -19,8 +20,11 @@ from repro.kernels.window_filter.ops import window_match as r_window_match
 from repro_torch.core import curve as tc
 from repro_torch.core.convert import curve_pool_from_numpy
 from repro_torch.kernels import cuda_lib
+from repro_torch.kernels.sfc_encode import ops as sfc_ops
 from repro_torch.kernels.sfc_encode.ops import sfc_encode, sfc_encode_pool
-from repro_torch.kernels.sfc_encode.ref import (sfc_encode_pool_ref,
+from repro_torch.kernels.sfc_encode.ref import (encode_lut_torch, lut_tables,
+                                                pool_tables,
+                                                sfc_encode_pool_ref,
                                                 sfc_encode_ref)
 from repro_torch.kernels.window_filter.ops import window_filter, window_match
 from repro_torch.kernels.window_filter.ref import (window_filter_ref,
@@ -97,6 +101,42 @@ def test_sfc_encode_twin_matches_reference(d, family, depth):
         np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("d,K,family,depth", [
+    (2, 32, "global", 1), (2, 32, "piecewise", 1), (2, 32, "piecewise", 2),
+    (2, 21, "global", 1), (2, 21, "piecewise", 2), (3, 21, "global", 1),
+    (3, 21, "piecewise", 1), (3, 21, "piecewise", 2)])
+def test_lut_twin_matches_reference(d, K, family, depth):
+    """The CUDA kernel's arithmetic (`lut_tables`, then `encode_lut_torch`)
+    against the plain twin and the reference's live encodes (the curve's
+    `encode_jax` and the data-driven `encode_z64_dyn` on its packed
+    layout), bit for bit.  Coordinates reach 2^K - 1; at K 32 bit 31 of the
+    int32 words and bit 63 of the address are live."""
+    ref_curve = rc.random_curve(np.random.default_rng(10 * d + K + depth), d,
+                                K, family=family, depth=depth)
+    curve = tc.curve_from_json(ref_curve.to_json())
+    rng = np.random.default_rng(K)
+    xs = rng.integers(0, 2**K, size=(600, d), dtype=np.uint64)
+    xs[:3] = 2**K - 1
+    xs[3] = 0
+    xs[4:20, 0] = 2**K - 1 - rng.integers(0, 16, size=16, dtype=np.uint64)
+    x = _i32(xs)
+    pos, reg = tc.curve_tables(curve, "cpu")
+    lut = lut_tables(pos, d, K)
+    assert lut.dtype == torch.int64
+    assert tuple(lut.shape) == (pos.shape[0], d, -(-K // 4), 16)
+    got = encode_lut_torch(torch.from_numpy(x), lut, reg, K).numpy()
+    assert got.dtype == np.int32 and got.shape == (600, 2)
+    np.testing.assert_array_equal(
+        got, sfc_encode_ref(torch.from_numpy(x), curve).numpy())
+    np.testing.assert_array_equal(
+        got, np.asarray(ref_curve.encode_jax(jnp.asarray(x))))
+    rpool = rc.pack_curve_pool([ref_curve])
+    np.testing.assert_array_equal(got, np.asarray(rsfc.encode_z64_dyn(
+        jnp.asarray(x), jnp.asarray(rpool.pos[0]), jnp.asarray(rpool.reg[0]))))
+    np.testing.assert_array_equal(tc.curve_lut(curve, "cpu").numpy(),
+                                  lut.numpy())
+
+
 def _mixed_pool(d, K):
     """The reference's mixed SMBO pool shape (tests/test_kernels.py): three
     global curves and three piecewise curves of depth 1 and 2."""
@@ -141,6 +181,61 @@ def test_sfc_encode_pool_twin_matches_reference(d, K):
                                             backend="xla")))
     with pytest.raises(ValueError, match="point sets"):
         sfc_encode_pool(torch.from_numpy(own[:5]), carried)
+
+
+@pytest.mark.parametrize("d,K", [(2, 16), (3, 12), (2, 32)])
+def test_lut_twin_of_a_pool_matches_reference(d, K):
+    """A pool's tables in one `lut_tables` call (what the pooled evaluator
+    builds once a round) equal each curve's own, and row p's LUT encode
+    equals the reference's pooled encode; `pool_tables` uses a pool's own
+    tables when it carries them."""
+    ref_curves = _mixed_pool(d, K)
+    rpool = rc.pack_curve_pool(ref_curves)
+    pool = curve_pool_from_numpy(rpool.pos, rpool.reg, d, K)
+    rng = np.random.default_rng(d + K)
+    xs = _i32(rng.integers(0, 2**K, size=(500, d), dtype=np.uint64))
+    xs[:4] = _i32(np.full((4, d), 2**K - 1, dtype=np.uint64))
+    want = np.asarray(r_sfc_encode_pool(jnp.asarray(xs), ref_curves,
+                                        backend="xla"))
+    reg, lut = pool_tables(pool, "cpu")
+    assert tuple(lut.shape) == (6, rpool.pos.shape[1], d, -(-K // 4), 16)
+    for p, c in enumerate(ref_curves):
+        own = tc.curve_lut(tc.curve_from_json(c.to_json()), "cpu")
+        np.testing.assert_array_equal(lut[p, :own.shape[0]].numpy(),
+                                      own.numpy())
+        np.testing.assert_array_equal(encode_lut_torch(
+            torch.from_numpy(xs), lut[p], reg[p], K).numpy(), want[p])
+    carried = tc.CurvePool(pos=pool.pos, reg=pool.reg, d=d, K=K, lut=lut)
+    assert pool_tables(carried, "cpu")[1] is lut
+
+
+def test_plan_encode_places_tables_by_size():
+    """Staged in shared memory when the table fits, else through L1.  Grids
+    cover the points at 1,024 a block, capped at what 132 SMs hold at once
+    across the pool: 8 blocks an SM, or as many staged blocks as fit."""
+    plan = sfc_ops.plan_encode
+    g = plan(256, 1, 1, 2, 32, 132)               # a global curve, d 2
+    assert (g.placement, g.blocks, g.table_bytes) == ("smem", 1, 2048)
+    assert plan(8192, 1, 1, 2, 32, 132).blocks == 8
+    assert plan(2**20, 1, 1, 2, 32, 132).blocks == 1024
+    assert plan(2**21, 1, 1, 2, 32, 132).blocks == 132 * 8
+    # 64 regions at d 3, K 21: 147,456 bytes, one staged block an SM
+    pw = plan(2**20, 1, 64, 3, 21, 132)
+    assert (pw.placement, pw.blocks, pw.table_bytes) == ("smem", 132, 147456)
+    assert plan(384, 1, 64, 3, 21, 132).blocks == 1
+    # pools: the SMBO shared-point encodes and a per-candidate call
+    assert plan(499808, 8, 1, 2, 32, 132).blocks == 132
+    assert plan(50000, 8, 64, 3, 21, 132).blocks == 16
+    assert plan(10, 2000, 1, 2, 32, 132).blocks == 1
+    # 256 regions at d 4, K 16: 262,144 bytes do not fit
+    big = plan(2**20, 8, 256, 4, 16, 132)
+    assert (big.placement, big.blocks) == ("l1", 132)
+    assert plan(2**21, 1, 256, 4, 16, 132).blocks == 132 * 8
+    assert plan(2**22, 1, 512, 3, 21, 132).table_bytes == 1179648
+    # the largest table that is staged, and the smallest that is not
+    fit = sfc_ops.MAX_STAGED_BYTES // 2048 * 2048
+    assert plan(2**20, 1, fit // 2048, 2, 32, 132).placement == "smem"
+    assert plan(2**20, 1, fit // 2048 + 1, 2, 32, 132).placement == "l1"
 
 
 def test_curve_pool_from_numpy_is_the_ports_packing():

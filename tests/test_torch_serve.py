@@ -25,6 +25,7 @@ from repro_torch.core import curve as tc
 from repro_torch.core import index as ti
 from repro_torch.core import query as tq
 from repro_torch.core import serve as tsv
+from repro_torch.core import split as tsplit
 
 SERVE_FIELDS = ("points", "page_zmin", "page_zmax", "page_mbr", "page_size")
 
@@ -45,13 +46,14 @@ def _indexes(family="global", n=6000, name="osm", depth=1, seed=0):
 
 
 def _run_both(a, b, rects, *, max_cand, max_hits, backends=("cuda", "torch"),
-              ref_backend="xla", interpret=False, arr_t=None):
+              ref_backend="xla", interpret=False, arr_t=None, q_chunk=8,
+              k_maxsplit=4):
     """Count and Range through both packages (the port on `arr_t`, by
     default `b` packed by the port); asserts equality."""
     arr_r = rsv.build_serving_arrays(a)
     if arr_t is None:
         arr_t = tsv.build_serving_arrays(b, device="cpu")
-    kw = dict(max_cand=max_cand, q_chunk=8)
+    kw = dict(max_cand=max_cand, q_chunk=q_chunk, k_maxsplit=k_maxsplit)
     want_c = rsv.make_query_fn(a.curve, backend=ref_backend,
                                interpret=interpret, **kw)(
         arr_r, jnp.asarray(rects))
@@ -116,6 +118,38 @@ def test_forced_overflow_matches_reference():
     assert over.any() and cand_over.any()
     *_, hit_over = _run_both(a, b, rects, max_cand=64, max_hits=4)
     assert hit_over.any()
+
+
+@pytest.mark.parametrize("k_maxsplit,q_chunk,max_cand,max_hits", [
+    (4, 8, 64, 4096), (4, 16, 1, 4096), (2, 4, 64, 4), (3, 16, 64, 4096)])
+def test_split_and_zranges_run_once_a_batch(monkeypatch, k_maxsplit, q_chunk,
+                                            max_cand, max_hits):
+    """Count and Range split the whole batch at once: k_maxsplit + 1
+    encode calls a batch (each split level encodes both corner sets in one
+    call, the z-ranges both corners in one), whatever Q / q_chunk, with
+    outputs equal to the reference's, forced overflow included."""
+    calls = []
+    real = tsplit.sfc_encode
+
+    def counting(x, curve, **kw):
+        calls.append(x.shape[0])
+        return real(x, curve, **kw)
+
+    monkeypatch.setattr(tsplit, "sfc_encode", counting)
+    _, (Ls, Us), a, b = _indexes("global", seed=8)
+    rects = tsv.pack_query_rects(Ls, Us)
+    Q, d = rects.shape[:2]
+    over = _run_both(a, b, rects, max_cand=max_cand, max_hits=max_hits,
+                     q_chunk=q_chunk, k_maxsplit=k_maxsplit)
+    # points a call: both corner sets of (Q, 2^level, d) candidate
+    # corners, then both corners of the (Q, 2^k) sub-queries
+    batch = [2 * Q * 2**lv * d for lv in range(k_maxsplit)]
+    batch.append(2 * Q * 2**k_maxsplit)
+    assert calls == batch * 4           # 2 backends x (Count, Range)
+    if max_cand == 1:
+        assert over[1].any() and over[4].any()
+    if max_hits == 4:
+        assert over[5].any()
 
 
 def test_count_matches_reference_pallas_interpret():

@@ -24,6 +24,7 @@ from repro.core.index import IndexConfig as RConfig
 from repro.core.index import LMSFCIndex as RIndex
 from repro_torch.core import batcheval as tb
 from repro_torch.core import cost as tcost
+from repro_torch.core import sfc as tsfc
 from repro_torch.core import smbo as tsmbo
 from repro_torch.core import surrogate as tsur
 from repro_torch.core import zorder64 as tz
@@ -170,6 +171,73 @@ def test_run_workload_pool_matches_reference():
         assert dataclasses.asdict(ta) == dataclasses.asdict(ra)
     with pytest.raises(ValueError, match="unknown pool engine"):
         tb.run_workload_pool(tidx, Ls, Us, engine="jax", device="cpu")
+
+
+def test_pooled_round_makes_one_encode_a_split_level(monkeypatch):
+    """A pooled round encodes with k + 2 pooled calls: the shared-point
+    keys, one a split level (both corner sets), one for both z-range
+    corners; `run_workload_pool` makes k + 1 of them.  Costs equal the
+    reference's to the last ulp."""
+    data, Ls, Us, K = _toy_problem(seed=4)
+    ref_curves, curves = _curves(MIXED, 2, K)
+    rcfg, cfg = _cfgs()
+    calls = []
+
+    def counting(real):
+        def encode(x, pool, **kw):
+            calls.append(tuple(x.shape))
+            return real(x, pool, **kw)
+        return encode
+
+    monkeypatch.setattr(tb, "sfc_encode_pool", counting(tb.sfc_encode_pool))
+    monkeypatch.setattr(tcost, "sfc_encode_pool",
+                        counting(tcost.sfc_encode_pool))
+    got = tcost.evaluate_pool(curves, data, Ls, Us, cfg, K, engine="torch",
+                              device="cpu")
+    k, (Q, d), P = cfg.k_maxsplit, Ls.shape, len(curves)
+    assert calls == ([(len(data), d)]
+                     + [(P, 2 * Q * 2**lv * d, d) for lv in range(k)]
+                     + [(P, 2 * Q * 2**k, d)])
+    np.testing.assert_array_equal(got, rcost.evaluate_pool(
+        ref_curves, data, Ls, Us, rcfg, K, engine="jax"))
+    calls.clear()
+    idx = [LMSFCIndex.build(data, curve=c, cfg=cfg, workload=(Ls, Us))
+           for c in curves]
+    tb.run_workload_pool(idx, Ls, Us, engine="torch", device="cpu")
+    assert len(calls) == k + 1
+
+
+def test_pooled_round_builds_its_lookup_tables_once(monkeypatch):
+    """A pooled round builds its curves' lookup tables once and hands the
+    same pool, tables included, to the key encode and to every encode of
+    the pooled program.  Costs equal the reference's to the last ulp."""
+    data, Ls, Us, K = _toy_problem(seed=5)
+    ref_curves, curves = _curves(MIXED, 2, K)
+    rcfg, cfg = _cfgs()
+    builds, pools = [], []
+    real_lut = tsfc.lut_tables
+
+    def lut_tables(pos, d, K):
+        builds.append(tuple(pos.shape))
+        return real_lut(pos, d, K)
+
+    def counting(real):
+        def encode(x, pool, **kw):
+            pools.append(pool)
+            return real(x, pool, **kw)
+        return encode
+
+    monkeypatch.setattr(tsfc, "lut_tables", lut_tables)
+    monkeypatch.setattr(tb, "sfc_encode_pool", counting(tb.sfc_encode_pool))
+    monkeypatch.setattr(tcost, "sfc_encode_pool",
+                        counting(tcost.sfc_encode_pool))
+    got = tcost.evaluate_pool(curves, data, Ls, Us, cfg, K, engine="torch",
+                              device="cpu")
+    assert len(builds) == 1
+    assert len(pools) == cfg.k_maxsplit + 2
+    assert all(p is pools[0] for p in pools) and pools[0].lut is not None
+    np.testing.assert_array_equal(got, rcost.evaluate_pool(
+        ref_curves, data, Ls, Us, rcfg, K, engine="jax"))
 
 
 @pytest.mark.parametrize("family,depth", [("global", 1), ("piecewise", 2)])
