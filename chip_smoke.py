@@ -32,7 +32,19 @@ no result.  Phases, each printing one JSON line:
    brute force;
 5. piecewise path: a 1M-row NYC-like index (d=3) under the learned
    piecewise curve, held the same way;
-6. kernels_flash: the two flash attention kernels against their plain
+6. database: the user's entry point, `repro_torch.api.Database`, on the
+   main path's 10M rows: `fit` (SMBO on the device program, 100 training
+   queries, a 10,000-row sample; the pooled encode launched) and the index
+   build; the `cuda` engine (the main path's knobs) serves 4 Count and 4
+   Range batches of 256, a Point batch of 256 (half stored rows) and 16
+   kNN centers (k 10, l2 and linf), every output held bit for bit against
+   the `torch` engine on the card, samples against brute force; forced
+   escalation (max_cand 4, max_hits 64) ends exact; 10,000 inserts and
+   1,000 deletes are served after a refresh that re-packs only dirty
+   pages; one batch with obs on equals it with obs off.  It prints q/s
+   through `Database.query` beside the main phase's bare-function q/s,
+   `CacheStats`, the span totals, launches and peak device memory;
+7. kernels_flash: the two flash attention kernels against their plain
    twin `mha_ref` on the card (atol = rtol = 2e-5 for the float32 scalar
    kernel, 2e-2 for the bf16 tensor-core kernel, which is also held
    against `flash_tc_ref` at 1e-2: that twin rounds where the kernel
@@ -41,13 +53,13 @@ no result.  Phases, each printing one JSON line:
    `scaled_dot_product_attention` as a yardstick, at the LM path's shape
    (also as the model's (B, S, H, dh)-strided views) and the reference
    tests' shapes;
-7. lm_serve: qwen3-4b at its published widths and full depth (36 layers)
+8. lm_serve: qwen3-4b at its published widths and full depth (36 layers)
    on seeded random weights serves 4 requests of 2,048 seeded random
    tokens: one prefill through the bf16 flash kernel (exactly one launch
    per layer), the caches stitched into
    a state of 2,048 + 32 slots, 32 greedy decode steps; the prefill is
    held against the plain-torch attention backend on the card;
-8. launch check: every kernel ran on each path.
+9. launch check: every kernel ran on each path.
 
 The line before the last lists the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero without
@@ -855,7 +867,385 @@ def phase_piecewise(data, n_batches: int, curve) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: flash attention against its plain twin
+# phase 6: the user's entry point, `repro_torch.api.Database`
+# ---------------------------------------------------------------------------
+
+DB_CAP = MAIN_CAP + MAIN_CAP // 4  # update headroom: refreshes stay per page
+DB_FIELDS = ("counts", "rows", "offsets", "found", "neighbors", "dists",
+             "overflowed", "residual_overflow")
+
+
+def _same_result(name: str, got, want) -> None:
+    """Every output of two results equal: arrays, escalations, fallbacks."""
+    import numpy as np
+    for f in DB_FIELDS:
+        if hasattr(want, f):
+            check(np.array_equal(getattr(got, f), getattr(want, f)),
+                  f"database: {name}: {f} differs")
+    check((got.escalations, got.cpu_fallbacks)
+          == (want.escalations, want.cpu_fallbacks),
+          f"database: {name}: escalations/fallbacks differ")
+
+
+def _served_on_card(name: str, r, tally: dict) -> None:
+    """A `cuda` engine result that the card answered whole: no query went
+    to the CPU exactness net and none was left overflowed.  `tally` sums
+    both over the phase, for its line."""
+    import numpy as np
+    residual = int(np.count_nonzero(getattr(r, "residual_overflow", ())))
+    tally["results"] += 1
+    tally["cpu_fallbacks"] += int(r.cpu_fallbacks)
+    tally["residual_overflow"] += residual
+    check(r.engine == "cuda", f"database: {name} was served by {r.engine}")
+    check(r.cpu_fallbacks == 0,
+          f"database: {name}: {r.cpu_fallbacks} queries fell back to the CPU")
+    check(residual == 0, f"database: {name}: {residual} queries overflowed")
+
+
+def _brute_knn(data, center, k: int, metric: str):
+    """Exact kNN over all of `data`: float64 distances pick every row that
+    can be among the k nearest (with slack past rounding), then the exact
+    integer tie-broken selection of `core.query.knn_select` decides."""
+    import numpy as np
+    from repro_torch.core.query import knn_select
+    diff = np.abs(data.astype(np.int64)
+                  - center.astype(np.int64)).astype(np.float64)
+    dist = diff.max(axis=1) if metric == "linf" else (diff * diff).sum(1)
+    kth = np.partition(dist, k - 1)[k - 1]
+    return knn_select(data[dist <= kth * (1 + 1e-9) + 1], center, k, metric)
+
+
+def _span_totals(snapshot: dict, names) -> dict:
+    """Summed seconds and counts of each span's histogram over its labels."""
+    out = {}
+    for name in names:
+        hs = [v for k, v in snapshot["metrics"].items()
+              if k.split("{")[0] == name + "_ns"]
+        out[name] = {"s": sum(h["sum"] for h in hs) / 1e9,
+                     "count": sum(h["count"] for h in hs)}
+    return out
+
+
+def phase_database(data, n_batches: int, seed: int, main_res: dict) -> dict:
+    """The user's entry point on the card: `Database.fit` (SMBO on the
+    device program, then the index build) on the main path's 10M rows, the
+    `cuda` engine serving Count, Range, Point and kNN through the kernels,
+    held bit for bit against the `torch` engine on the same card and on
+    samples against brute force; forced escalation; inserts and deletes
+    served after a per-page refresh; one batch with obs on.  Launch counts
+    are set to 0 just before the phase and read just after it."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import api, obs
+    from repro_torch.api.deltas import rows_in_set
+    from repro_torch.core.curve import default_curve
+    from repro_torch.core.query import brute_force_count, brute_force_range
+    from repro_torch.data.workload import make_workload
+    from repro_torch.kernels import cuda_lib
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    t_phase = time.perf_counter()
+
+    # 1. fit: 100 training queries, a 10,000-row sample, 4 evaluations a
+    # round (5 x 100 x 10,000 >= 500,000: every round is the device program)
+    Ls_tr, Us_tr = make_workload(data, 100, seed=seed + 7, width_scale=0.01,
+                                 K=32)
+    obs.enable()                   # read the fit's learn and build spans
+    t0 = time.perf_counter()
+    db = api.Database.fit(data, (Ls_tr, Us_tr), K=32, sample=10_000,
+                          smbo={"evals_per_iter": 4}, seed=seed)
+    fit_s = time.perf_counter() - t0
+    fit_spans = _span_totals(obs.snapshot(), ("database.fit.learn",
+                                              "database.fit.build"))
+    obs.disable()
+    obs.reset()
+    fit_launches = dict(cuda_lib.LAUNCHES)
+    check(fit_launches["sfc_encode_pool"] > 0,
+          "database: fit launched no sfc_encode_pool")
+    res = db.fit_result
+    anchor, anchor_y = res.evaluated[0]
+    check(anchor == default_curve(2, 32, "global"),
+          "database: the first evaluated curve is not the z-order anchor")
+    check(res.y_best <= anchor_y,
+          f"database: learned cost {res.y_best} > z-order {anchor_y}")
+
+    # 2. engines: the main phase's knobs, both on the card
+    knobs = dict(q_chunk=Q_CHUNK, max_cand=MAX_CAND, max_hits=MAX_HITS)
+    db.engine("torch", api.EngineConfig(**knobs))
+    db.engine("cuda", api.EngineConfig(**knobs))
+    check(db.engines["cuda"].device.type == "cuda"
+          and db.engines["torch"].device.type == "cuda",
+          "database: the engines are not on the card")
+
+    # 3. serve: the main phase's batches (same seed and width)
+    Ls, Us = make_workload(data, n_batches * BATCH, seed=1,
+                           width_scale=0.01, K=32)
+    batches = [(Ls[i * BATCH:(i + 1) * BATCH], Us[i * BATCH:(i + 1) * BATCH])
+               for i in range(n_batches)]
+    rng = np.random.default_rng(seed + 8)
+    stored = data[rng.choice(len(data), BATCH // 2, replace=False)]
+    absent = rng.integers(0, 2**32, size=(4 * BATCH, 2), dtype=np.uint64)
+    absent = np.unique(absent[~rows_in_set(absent, data)], axis=0)
+    absent = absent[rng.permutation(len(absent))[:BATCH // 2]]
+    points = np.concatenate([stored, absent])
+    centers = data[rng.choice(len(data), 16, replace=False)]
+    for engine in ("cuda", "torch"):            # first use: pack, upload
+        db.query(api.Count(*batches[0]), engine=engine)
+        db.query(api.Range(*batches[0]), engine=engine)
+    served, seconds = {}, {}
+    for engine in ("cuda", "torch"):
+        before = dict(cuda_lib.LAUNCHES)
+        out = {}
+        t0 = time.perf_counter()
+        out["count"] = [db.query(api.Count(*b), engine=engine)
+                        for b in batches]
+        t1 = time.perf_counter()
+        out["range"] = [db.query(api.Range(*b), engine=engine)
+                        for b in batches]
+        t2 = time.perf_counter()
+        out["point"] = db.query(api.Point(points), engine=engine)
+        out["knn"] = [db.query(api.Knn(centers, k=10, metric=m),
+                               engine=engine) for m in ("l2", "linf")]
+        seconds[engine] = (t1 - t0, t2 - t1)
+        launched = {k: v - before[k] for k, v in cuda_lib.LAUNCHES.items()}
+        if engine == "cuda":
+            serve_launches = launched
+        else:
+            check(not any(launched.values()),
+                  "database: the torch engine launched a kernel")
+        served[engine] = out
+    for name in ("window_filter", "window_match", "sfc_encode"):
+        check(serve_launches[name] > 0,
+              f"database: the cuda engine served without launching {name}")
+    got, want = served["cuda"], served["torch"]
+    on_card = {"results": 0, "cpu_fallbacks": 0, "residual_overflow": 0}
+    for kind in ("count", "range", "knn"):
+        for i, (g, w) in enumerate(zip(got[kind], want[kind])):
+            check(g.engine == "cuda" and w.engine == "torch",
+                  f"database: {kind} {i} was routed off its engine")
+            _same_result(f"{kind} {i}", g, w)
+            _served_on_card(f"{kind} {i}", g, on_card)
+    _same_result("point", got["point"], want["point"])
+    _served_on_card("point", got["point"], on_card)
+    check(bool(got["point"].found[:BATCH // 2].all())
+          and not got["point"].found[BATCH // 2:].any(),
+          "database: point lookups disagree with the stored/absent split")
+    for kind in ("count", "range"):
+        for r in got[kind]:
+            check(r.exact, f"database: a {kind} batch is not exact")
+    counts = np.concatenate([r.counts for r in got["count"]])
+    pick = np.random.default_rng(seed + 9).permutation(len(Ls))
+    for t in pick[:32]:
+        want_c = brute_force_count(data, Ls[t], Us[t])
+        check(counts[t] == want_c, f"database: count {counts[t]} != brute "
+                                   f"{want_c} (query {t})")
+    for t in pick[:8]:
+        rr = got["range"][t // BATCH]
+        check(np.array_equal(rr.rows_for(t % BATCH),
+                             brute_force_range(data, Ls[t], Us[t])),
+              f"database: range rows differ from brute force (query {t})")
+    knn_checked = 0
+    for m, kr in zip(("l2", "linf"), got["knn"]):
+        for i in range(4):
+            rows, dists = _brute_knn(data, centers[i], 10, m)
+            check(np.array_equal(kr.neighbors_for(i), rows)
+                  and np.array_equal(kr.dists_for(i),
+                                     np.asarray(dists, dtype=np.float64)),
+                  f"database: {m} kNN of center {i} differs from brute force")
+            knn_checked += 1
+
+    # the same batches through the bare functions on the cuda engine's
+    # arrays (its launches are left out of the phase's): what the facade
+    # adds on top of them; then one warm Count and Range batch with obs on
+    # splits the facade's time into its fenced device calls and the rest
+    from repro_torch.core.serve import (make_query_fn, make_range_fn,
+                                        pack_query_rects)
+    arrays = db.engines["cuda"]._arrays
+    kw = dict(k_maxsplit=K_MAXSPLIT, max_cand=MAX_CAND, q_chunk=Q_CHUNK)
+    qfn = make_query_fn(db.curve, **kw)
+    rfn = make_range_fn(db.curve, max_hits=MAX_HITS, **kw)
+    rects = [torch.from_numpy(pack_query_rects(*b)).cuda() for b in batches]
+    before = dict(cuda_lib.LAUNCHES)
+    qfn(arrays, rects[0])
+    rfn(arrays, rects[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bare_counts = [qfn(arrays, r)[0].cpu() for r in rects]
+    t1 = time.perf_counter()
+    for r in rects:
+        rfn(arrays, r)[0].cpu()
+    t2 = time.perf_counter()
+    bare_s = (t1 - t0, t2 - t1)
+    bare_launches = {k: v - before[k] for k, v in cuda_lib.LAUNCHES.items()}
+    first = np.concatenate([r.overflowed for r in got["count"]]) == 0
+    check(np.array_equal(torch.cat(bare_counts).numpy()[first],
+                         counts[first]),
+          "database: the bare counts differ from the facade's")
+    obs.enable()
+    for kind, q in (("count", api.Count), ("range", api.Range)):
+        db.query(q(*batches[0]), engine="cuda")
+    attribution = {}
+    for kind in ("count", "range"):
+        sums = {}
+        for m in obs.registry.metrics():
+            labels = dict(m.labels)
+            if labels.get("kind") == kind and m.name in (
+                    "executor.execute_ns", "executor.device_call_ns"):
+                sums[m.name] = sums.get(m.name, 0) + m.sum / 1e9
+        attribution[kind] = {"execute_s": sums["executor.execute_ns"],
+                             "device_call_s": sums["executor.device_call_ns"]}
+    obs.disable()
+    obs.reset()
+
+    # 4. forced escalation: max_cand 4, max_hits 64, same batch, exact
+    db.engine("cuda", api.EngineConfig(q_chunk=Q_CHUNK, max_cand=4,
+                                       max_hits=64))
+    t0 = time.perf_counter()
+    forced = {"count": db.query(api.Count(*batches[0])),
+              "range": db.query(api.Range(*batches[0]))}
+    forced_s = time.perf_counter() - t0
+    for kind, r in forced.items():
+        check(r.exact and r.escalations > 0,
+              f"database: forced {kind} did not escalate to exact")
+        _served_on_card(f"forced {kind}", r, on_card)
+        for f in ("counts", "rows", "offsets"):
+            if hasattr(r, f):
+                check(np.array_equal(getattr(r, f),
+                                     getattr(got[kind][0], f)),
+                      f"database: forced {kind} {f} differ from unforced")
+
+    # 5. observability: a fresh cuda engine (pack, upload, fn builds) with
+    # obs on, then the same batch with obs off
+    db.engine("cuda", api.EngineConfig(cap=DB_CAP, **knobs))
+    db.engine("torch", api.EngineConfig(cap=DB_CAP, **knobs))
+    obs.enable()
+    on = db.query(api.Count(*batches[0]), engine="cuda")
+    spans = _span_totals(obs.snapshot(), (
+        "executor.device_call", "engine.sync", "engine.upload",
+        "executor.fn_build"))
+    obs.disable()
+    obs.reset()
+    off = db.query(api.Count(*batches[0]), engine="cuda")
+    _same_result("obs on/off", on, off)
+    _same_result("obs on/unforced", on, got["count"][0])
+    _served_on_card("obs on", on, on_card)
+    _served_on_card("obs off", off, on_card)
+    for name in ("executor.device_call", "engine.sync", "engine.upload",
+                 "executor.fn_build"):
+        check(spans[name]["count"] > 0, f"database: no {name} span")
+
+    # 6. updates: 10,000 inserts near stored rows, 1,000 deletes; the next
+    # query refreshes only the dirty pages
+    db.query(api.Count(*batches[0]), engine="torch")     # pack at epoch 0
+    near = data[rng.choice(len(data), 10_000, replace=False)].astype(np.int64)
+    near += rng.integers(-64, 65, size=near.shape)
+    new = np.unique(np.clip(near, 0, 2**32 - 1).astype(np.uint64), axis=0)
+    new = new[~rows_in_set(new, data)]
+    dead = data[rng.choice(len(data), 1_000, replace=False)]
+    t0 = time.perf_counter()
+    db.insert(new)
+    n_deleted = db.delete(dead)
+    mutate_s = time.perf_counter() - t0
+    check(n_deleted == len(dead), f"database: {n_deleted} of {len(dead)} "
+                                  f"deletes took")
+    eng = db.engines["cuda"]
+    dirty = db.store.dirty_since(eng.built_epoch)
+    pts0 = eng._host.points.copy()
+    size0 = eng._host.page_size.copy()
+    t0 = time.perf_counter()
+    upd = {"count": db.query(api.Count(*batches[-1]), engine="cuda")}
+    refresh_s = time.perf_counter() - t0
+    upd["range"] = db.query(api.Range(*batches[-1]), engine="cuda")
+    check(eng.built_epoch == db.store.epoch, "database: no refresh ran")
+    check(eng._host.points.shape == pts0.shape,
+          "database: the refresh grew the capacity (full repack)")
+    changed = np.nonzero((eng._host.points != pts0).any(axis=(1, 2))
+                         | (eng._host.page_size != size0))[0]
+    check(set(changed.tolist()) <= set(dirty),
+          "database: the refresh repacked pages that were not dirty")
+    for kind, r in upd.items():
+        w = db.query((api.Count if kind == "count" else api.Range)(
+            *batches[-1]), engine="torch")
+        check(r.exact, f"database: {kind} after updates not exact")
+        _same_result(f"{kind} after updates", r, w)
+        _served_on_card(f"{kind} after updates", r, on_card)
+    t0 = time.perf_counter()
+    live = db.store.merged_data()
+    merged_s = time.perf_counter() - t0
+    check(len(live) == len(data) + len(new) - len(dead),
+          "database: live rows do not add up")
+    for t in pick[:16]:
+        i = t % BATCH
+        lo, hi = batches[-1][0][i], batches[-1][1][i]
+        check(upd["count"].counts[i] == brute_force_count(live, lo, hi),
+              f"database: count after updates differs (query {i})")
+    for t in pick[:4]:
+        i = t % BATCH
+        lo, hi = batches[-1][0][i], batches[-1][1][i]
+        check(np.array_equal(upd["range"].rows_for(i),
+                             brute_force_range(live, lo, hi)),
+              f"database: range after updates differs (query {i})")
+
+    launches = {k: v - bare_launches[k] for k, v in cuda_lib.LAUNCHES.items()}
+    peak = torch.cuda.max_memory_allocated()
+    for name in ("window_filter", "window_match", "sfc_encode",
+                 "sfc_encode_pool"):
+        check(launches[name] > 0, f"database: {name} was not launched")
+    Q = n_batches * BATCH
+    out = {
+        "phase": "database", "rows": int(db.index.n), "d": int(db.d),
+        "K": int(db.index.K), "pages": int(db.num_pages),
+        "fit": {"seconds": fit_s,
+                "learn_s": fit_spans["database.fit.learn"]["s"],
+                "build_s": fit_spans["database.fit.build"]["s"],
+                "evaluations": len(res.evaluated), "y_best": res.y_best,
+                "zorder_cost": anchor_y,
+                "sfc_encode_pool": fit_launches["sfc_encode_pool"]},
+        "queries": Q, "q_chunk": Q_CHUNK, "max_cand": MAX_CAND,
+        "max_hits": MAX_HITS,
+        "count_qps": Q / seconds["cuda"][0],
+        "range_qps": Q / seconds["cuda"][1],
+        "count_qps_torch": Q / seconds["torch"][0],
+        "range_qps_torch": Q / seconds["torch"][1],
+        "bare_count_qps": Q / bare_s[0], "bare_range_qps": Q / bare_s[1],
+        "main_count_qps": main_res["count_qps"],
+        "main_range_qps": main_res["range_qps"],
+        "first_pass_overflowed": {
+            k: int(sum((r.overflowed > 0).sum() for r in got[k]))
+            for k in ("count", "range")},
+        "obs_attribution": attribution,
+        "escalations": {k: [r.escalations for r in got[k]]
+                        for k in ("count", "range")},
+        "brute_checked": {"count": 32, "range": 8, "knn": knn_checked},
+        "point": {"stored": BATCH // 2, "absent": BATCH // 2,
+                  "found": int(got["point"].found.sum())},
+        "forced": {"seconds": forced_s,
+                   "escalations": {k: r.escalations
+                                   for k, r in forced.items()},
+                   "device_calls": {k: r.plan.accounting.device_calls
+                                    for k, r in forced.items()}},
+        "obs_spans": spans,
+        "cuda_results": on_card,
+        "updates": {"inserted": int(len(new)), "deleted": n_deleted,
+                    "dirty_pages": len(dirty),
+                    "repacked_pages": int(len(changed)), "cap": DB_CAP,
+                    "mutate_s": mutate_s, "refresh_query_s": refresh_s,
+                    "merged_data_s": merged_s, "brute_checked": 20},
+        "cache": dataclasses.asdict(db.executor.cache),
+        "serve_launches": serve_launches, "launches": launches,
+        "bare_launches": bare_launches,
+        "peak_device_bytes": int(peak),
+        "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7: flash attention against its plain twin
 # ---------------------------------------------------------------------------
 
 LM_ARCH = "qwen3-4b"
@@ -1002,7 +1392,7 @@ def phase_kernels_flash(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: qwen3-4b prefill + decode serving on the card
+# phase 8: qwen3-4b prefill + decode serving on the card
 # ---------------------------------------------------------------------------
 
 
@@ -1193,6 +1583,7 @@ def main(argv=None) -> int:
     kern["sfc_encode_pool"] = phase_pool_kernel(smbo, int_ops_per_s)
     main_res = phase_main(osm, args.batches, main_curve)
     pw_res = phase_piecewise(nyc, args.batches, pw_curve)
+    db_res = phase_database(osm, args.batches, args.seed, main_res)
     del osm, nyc
     flash = phase_kernels_flash(args.seed)
     lm = phase_lm_serve(args.seed, args.lm_layers, args.decode_steps)
@@ -1226,6 +1617,7 @@ def main(argv=None) -> int:
             row.update(shape=k["shape"], placement=k["placement"])
         if pw_path is not None:
             row["piecewise_launches"] = pw_path["launches"][name]
+        row["database_launches"] = db_res["launches"][name]
         if off_path:
             row["held_launches"] = flash["held_launches"][name]
         rows.append(row)

@@ -22,7 +22,8 @@ and, for a whole SMBO candidate pool, as one torch program on the device
 
 Exactness: every statistic in the returned `QueryStats` (and therefore
 every cost value in cost.py) is bit-identical to the per-query evaluator.
-Workloads that need FNZ skipping go to the per-query engine.
+Workloads that need the delta store or FNZ skipping go to the per-query
+engine.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import obs
 from ..kernels.sfc_encode.ops import sfc_encode_pool
 from .curve import CurvePool, device_curve_pool
 from .device import resolve_device
@@ -48,7 +50,10 @@ _ROW_BUDGET = 1 << 25
 
 
 def _needs_fallback(index: LMSFCIndex) -> bool:
-    return index.cfg.skipping == "fnz"
+    if index.cfg.skipping == "fnz":
+        return True
+    store = getattr(index, "_delta_store", None)
+    return store is not None and bool(store.deltas or store.tombstones)
 
 
 def run_workload_batched(index: LMSFCIndex, Ls: np.ndarray, Us: np.ndarray):
@@ -332,6 +337,9 @@ def run_workload_pool(indexes, Ls: np.ndarray, Us: np.ndarray,
     qU = torch.from_numpy(Us.astype(np.uint32).astype(np.int64)).to(dev)
     out = _pool_program(_pack_index_pool(indexes, dev, pool), qL, qU, k,
                         backend).cpu().numpy()
+    if obs.enabled():
+        obs.inc("smbo.pool_eval.dispatches")
+        obs.inc("smbo.pool_eval.candidates", len(indexes))
     res = []
     for p in range(len(indexes)):
         counts, pages, irr, scanned, matches, leaves = out[p]

@@ -3,8 +3,8 @@
 Pipeline: learn/choose θ → encode & sort by z-address → cost-based paging →
 page-level sort dimensions → PGM forward index over page z-mins.
 
-The reference's update shims (delta pages and tombstones) come with the
-port of its `api/deltas` layer; this module builds static indexes.
+Updates (paper §7.11) live in `repro_torch.api.deltas.DeltaStore`; the free
+functions at the end of this module are thin shims over it.
 """
 from __future__ import annotations
 
@@ -138,3 +138,50 @@ class LMSFCIndex:
         return LMSFCIndex(curve=curve, cfg=cfg, K=K, xs=xs, starts=starts,
                           mbrs=pg.mbrs, sort_dims=sort_dims,
                           page_zmin=page_zmin, page_zmax=page_zmax, pgm=pgm)
+
+
+# ---------------------------------------------------------------------------
+# updates (paper §7.11): delta pages (LMSFCb) + tombstones + rebuild (LMSFCa)
+#
+# Update state lives in an explicit `repro_torch.api.deltas.DeltaStore`
+# (with a staleness epoch that serving engines check); the free functions
+# below are thin shims, the reference's pre-facade call sites.
+# Prefer `repro_torch.api.Database.insert/delete/rebuild`.
+# ---------------------------------------------------------------------------
+
+
+def _store(index: "LMSFCIndex"):
+    from ..api.deltas import get_delta_store  # lazy: api imports core
+    return get_delta_store(index)
+
+
+def insert(index: "LMSFCIndex", x) -> int:
+    """LMSFCb-style insertion: append to the target page's unsorted delta
+    array (located via the learned forward index); queries scan deltas.
+    Returns the page id."""
+    return _store(index).insert(x)
+
+
+def delete(index: "LMSFCIndex", x) -> None:
+    """Tombstone deletion (paper: 'mark a record as deleted')."""
+    _store(index).delete(x)
+
+
+def delta_count(index: "LMSFCIndex", p: int, qL, qU) -> int:
+    """Extra matches from page p's delta array (minus tombstones)."""
+    if not hasattr(index, "_delta_store"):
+        return 0
+    return _store(index).delta_count(p, qL, qU)
+
+
+def needs_rebuild(index: "LMSFCIndex", frac: float = 0.1) -> bool:
+    return _store(index).n_inserted > frac * index.n
+
+
+def rebuild(index: "LMSFCIndex", workload=None) -> "LMSFCIndex":
+    """Merge deltas, drop tombstones (vectorized row-set membership),
+    rebuild paging/sort-dims/PGM (the paper's LMSFCa periodic maintenance;
+    callers may re-run learn_sfc for a fresh θ before calling this)."""
+    data = _store(index).merged_data()
+    return LMSFCIndex.build(data, curve=index.curve, cfg=index.cfg,
+                            workload=workload)

@@ -15,10 +15,13 @@ Beyond COUNT, this module carries the typed query algebra:
                  center's curve address seed an upper-bound radius, then an
                  exact box retrieval is refined by exact integer distances
 
+Every function here reads the index's update state (delta pages and
+tombstones, `repro_torch.api.deltas.DeltaStore`), so results reflect
+inserts and deletes.  This is the execution layer behind the "cpu" engine
+of the `repro_torch.api.Database` facade — prefer `Database.query`.
 FindNextZaddress skipping (``skipping="fnz"``) comes with the port of the
-reference's baselines, and delta pages with its update layer; until then
-``skipping="fnz"`` raises and indexes are static.  The device engine lives
-in serve.py (mask→compact→gather→filter).
+reference's baselines; until then it raises.  The device engine lives in
+serve.py (mask→compact→gather→filter).
 """
 from __future__ import annotations
 
@@ -96,6 +99,11 @@ def query_count(index: LMSFCIndex, qL, qU) -> QueryStats:
     total = 0
     for p in pages:
         total += _scan_page(index, p, qL, qU, stats)
+    # updates (paper §7.11): unsorted per-page delta arrays + tombstones,
+    # held in the index's DeltaStore (repro_torch.api.deltas)
+    store = getattr(index, "_delta_store", None)
+    if store is not None and (store.deltas or store.tombstones):
+        total += store.count_adjustment(pages, qL, qU)
     stats.result = total
     return stats
 
@@ -130,8 +138,10 @@ def _scan_page_rows(index: LMSFCIndex, p: int, qL, qU,
 
 def query_range(index: LMSFCIndex, qL, qU):
     """Range *retrieval*: the rows in [qL, qU] (page-walk order), plus
-    stats.  Same candidate-page walk as `query_count`.  (FNZ skipping is
-    count-only; retrieval always walks the RQS/plain candidate set.)"""
+    stats.  Same candidate-page walk as `query_count`; delta rows are
+    appended and tombstoned rows filtered through the index's DeltaStore.
+    (FNZ skipping is count-only; retrieval always walks the RQS/plain
+    candidate set.)"""
     qL = np.asarray(qL, dtype=np.uint64)
     qU = np.asarray(qU, dtype=np.uint64)
     stats = QueryStats()
@@ -143,16 +153,29 @@ def query_range(index: LMSFCIndex, qL, qU):
             parts.append(rows)
     out = (np.concatenate(parts) if parts
            else np.empty((0, index.d), dtype=np.uint64))
+    store = getattr(index, "_delta_store", None)
+    if store is not None and (store.deltas or store.tombstones):
+        from ..api.deltas import rows_in_set  # lazy: api imports core
+        extra = [store.delta_rows(p) for p in pages if store.deltas.get(p)]
+        if extra:
+            dr = np.concatenate(extra)
+            ok = np.all((dr >= qL) & (dr <= qU), axis=1)
+            out = np.concatenate([out, dr[ok]])
+        tomb = store.tombstone_rows()
+        if len(tomb):
+            out = out[~rows_in_set(out, tomb)]
     stats.result = len(out)
     return out, stats
 
 
 def query_point(index: LMSFCIndex, xs) -> np.ndarray:
     """Exact-match lookup: curve encode + forward-index page probe + binary
-    search on the page's sort dimension.  xs: (Q, d) -> (Q,) bool."""
+    search on the page's sort dimension.  xs: (Q, d) -> (Q,) bool (delta
+    rows found, tombstoned rows not)."""
     xs = np.atleast_2d(np.asarray(xs, dtype=np.uint64))
     z = index.curve.encode_np(xs)
     ps = np.asarray(index.page_of(z), dtype=np.int64)
+    store = getattr(index, "_delta_store", None)
     found = np.zeros(len(xs), dtype=bool)
     for i, (x, p) in enumerate(zip(xs, ps)):
         s, e = int(index.starts[p]), int(index.starts[p + 1])
@@ -161,7 +184,12 @@ def query_point(index: LMSFCIndex, xs) -> np.ndarray:
         col = seg[:, sd]
         lo = int(np.searchsorted(col, x[sd], side="left"))
         hi = int(np.searchsorted(col, x[sd], side="right"))
-        found[i] = bool(np.all(seg[lo:hi] == x, axis=1).any())
+        hit = bool(np.all(seg[lo:hi] == x, axis=1).any())
+        if not hit and store is not None and store.deltas.get(int(p)):
+            hit = bool(np.all(store.delta_rows(int(p)) == x, axis=1).any())
+        if hit and store is not None and store.tombstones:
+            hit = tuple(int(v) for v in x) not in store.tombstones
+        found[i] = hit
     return found
 
 
@@ -216,7 +244,12 @@ def query_knn(index: LMSFCIndex, center, k: int, metric: str = "l2"):
     (`query_range`) and take the exact top-k.  Returns (rows (k', d) uint64,
     dists list of python ints, stats) with k' = min(k, live rows)."""
     center = np.asarray(center, dtype=np.uint64)
-    kk = min(int(k), index.n)
+    store = getattr(index, "_delta_store", None)
+    has_updates = store is not None and (store.deltas or store.tombstones)
+    total = index.n
+    if store is not None:
+        total += store.n_inserted - store.n_deleted
+    kk = min(int(k), total)
     stats = QueryStats()
     if kk <= 0:
         return np.empty((0, index.d), dtype=np.uint64), [], stats
@@ -224,6 +257,12 @@ def query_knn(index: LMSFCIndex, center, k: int, metric: str = "l2"):
     p0 = int(index.page_of(z)[0])
     stats.index_accesses += 1
     Pn = index.num_pages
+
+    def live_rows(p):
+        if has_updates:
+            return store.live_page_rows(p)
+        s, e = int(index.starts[p]), int(index.starts[p + 1])
+        return index.xs[s:e]
 
     w = 1
     parts = []
@@ -234,16 +273,20 @@ def query_knn(index: LMSFCIndex, center, k: int, metric: str = "l2"):
         # read only the pages the widened ring adds (once-per-page
         # semantics, like the buffer-cache contract of _candidate_pages)
         for p in list(range(lo, cov_lo)) + list(range(cov_hi + 1, hi + 1)):
-            rows = index.xs[int(index.starts[p]):int(index.starts[p + 1])]
-            parts.append(rows)
-            n_seed += len(rows)
+            rows = live_rows(p)
+            if len(rows):
+                parts.append(rows)
+                n_seed += len(rows)
         stats.pages_accessed += (cov_lo - lo) + (hi - cov_hi)
         cov_lo, cov_hi = lo, hi
         if n_seed >= kk or (lo == 0 and hi == Pn - 1):
             break
         w *= 2
-    seed = np.concatenate(parts)       # kk > 0: pages hold >= kk rows
-    kth = sorted(exact_dists(seed, center, metric))[kk - 1]
+    seed = np.concatenate(parts) if parts \
+        else np.empty((0, index.d), dtype=np.uint64)
+    if len(seed) == 0:          # duplicate-inserted rows can inflate `total`
+        return np.empty((0, index.d), dtype=np.uint64), [], stats
+    kth = sorted(exact_dists(seed, center, metric))[min(kk, len(seed)) - 1]
     qL, qU = knn_box(center, knn_radius(kth, metric), index.K)
     box_rows, rstats = query_range(index, qL, qU)
     stats.merge(rstats)

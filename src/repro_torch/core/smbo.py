@@ -33,6 +33,7 @@ import math
 import numpy as np
 import torch
 
+from .. import obs
 from .cost import evaluate_curve, evaluate_pool
 from .curve import MonotonicCurve, init_curves, random_curve
 from .device import resolve_device
@@ -123,13 +124,15 @@ def learn_sfc(data: np.ndarray, Ls: np.ndarray, Us: np.ndarray, *,
 
     def evaluate_batch(cs: list) -> list:
         """Line 4 (BatchEval) for one candidate round."""
-        if evaluator in _POOL_ENGINES:
-            ys = evaluate_pool(cs, data, Ls, Us, cfg, K,
-                               engine=_POOL_ENGINES[evaluator], device=dev,
-                               backend=backend)
-            return [float(v) for v in ys]
-        return [evaluate_curve(c, data, Ls, Us, cfg, K,
-                               evaluator=evaluator) for c in cs]
+        with obs.span("smbo.pool_eval", candidates=len(cs),
+                      evaluator=evaluator):
+            if evaluator in _POOL_ENGINES:
+                ys = evaluate_pool(cs, data, Ls, Us, cfg, K,
+                                   engine=_POOL_ENGINES[evaluator],
+                                   device=dev, backend=backend)
+                return [float(v) for v in ys]
+            return [evaluate_curve(c, data, Ls, Us, cfg, K,
+                                   evaluator=evaluator) for c in cs]
 
     # --- line 1: initial design + surrogate ------------------------------
     init = init_curves(d, K, family=space, depth=depth)
@@ -140,38 +143,46 @@ def learn_sfc(data: np.ndarray, Ls: np.ndarray, Us: np.ndarray, *,
             seen.add(c)
             init.append(c)
 
-    evaluated = list(zip(init, evaluate_batch(init)))
+    with obs.span("smbo.init_design", space=space, n_init=len(init)):
+        evaluated = list(zip(init, evaluate_batch(init)))
+    if obs.enabled():
+        obs.inc("smbo.evaluations", len(init), space=space)
     model = RandomForest(rng=rng)
     ybest_idx = int(np.argmin([y for _, y in evaluated]))
     curve_best, y_best = evaluated[ybest_idx]
     history = [(0, y_best)]
 
     for it in range(1, max_iters + 1):
-        X = np.stack([c.features() for c, _ in evaluated])
-        y = np.asarray([v for _, v in evaluated])
-        model.fit(X, y)
+        with obs.span("smbo.iteration", space=space, iteration=it):
+            X = np.stack([c.features() for c, _ in evaluated])
+            y = np.asarray([v for _, v in evaluated])
+            model.fit(X, y)
 
-        # --- line 3: SelectCands via EI over a perturbation pool ---------
-        pool = curve_best.neighbors(rng, n=pool_size // 2, max_swaps=3)
-        pool += [random_curve(rng, d, K, family=space, depth=depth)
-                 for _ in range(pool_size - len(pool))]
-        pool = [c for c in pool if c not in seen] or pool
-        Xp = np.stack([c.features() for c in pool])
-        mu, sigma = model.predict(Xp)
-        ei = _ei(mu, sigma, y_best)
-        # seeded tie-break: shuffle, then stable-sort by EI descending —
-        # equal-EI candidates come out in seeded-random (but
-        # reproducible) order instead of pool-construction order
-        perm = rng.permutation(len(pool))
-        top = perm[np.argsort(-ei[perm], kind="stable")][:evals_per_iter]
+            # --- line 3: SelectCands via EI over a perturbation pool -----
+            pool = curve_best.neighbors(rng, n=pool_size // 2, max_swaps=3)
+            pool += [random_curve(rng, d, K, family=space, depth=depth)
+                     for _ in range(pool_size - len(pool))]
+            pool = [c for c in pool if c not in seen] or pool
+            Xp = np.stack([c.features() for c in pool])
+            mu, sigma = model.predict(Xp)
+            ei = _ei(mu, sigma, y_best)
+            # seeded tie-break: shuffle, then stable-sort by EI descending —
+            # equal-EI candidates come out in seeded-random (but
+            # reproducible) order instead of pool-construction order
+            perm = rng.permutation(len(pool))
+            top = perm[np.argsort(-ei[perm], kind="stable")][:evals_per_iter]
 
-        # --- line 4: BatchEval -------------------------------------------
-        cands = [pool[int(j)] for j in top]
-        seen.update(cands)
-        for c, yv in zip(cands, evaluate_batch(cands)):
-            evaluated.append((c, yv))
-            if yv < y_best:
-                y_best, curve_best = yv, c
+            # --- line 4: BatchEval ---------------------------------------
+            cands = [pool[int(j)] for j in top]
+            seen.update(cands)
+            for c, yv in zip(cands, evaluate_batch(cands)):
+                evaluated.append((c, yv))
+                if yv < y_best:
+                    y_best, curve_best = yv, c
+        if obs.enabled():
+            obs.inc("smbo.evaluations", len(cands), space=space)
+            obs.set_gauge("smbo.best_cost", float(y_best), space=space)
+            obs.set_gauge("smbo.iteration", float(it), space=space)
         history.append((it, y_best))
         if verbose:
             print(f"[smbo] iter {it}: best cost {y_best:.3f}")

@@ -4,7 +4,7 @@ granite-34b: one block, differing in MLP kind and head counts).
 Layers are stacked on a leading axis, as the reference's `stack_init`
 makes them, and applied by a Python loop over that axis (the reference's
 ``lax.scan``).  The other families raise `NotImplementedError`: their
-slices are queued in ROADMAP.md (Queue 4 item 10, "Remaining LM
+slices are queued in ROADMAP.md (Queue 1 item 8, "The remaining LM
 families").  Training (`lm_loss`, remat) belongs to the training slice.
 """
 from __future__ import annotations
@@ -24,8 +24,8 @@ def check_family(cfg) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet; the "
-            f"port has the dense family (ROADMAP.md Queue 4 item 10, "
-            f"'Remaining LM families')")
+            f"port has the dense family (ROADMAP.md Queue 1 item 8, "
+            f"'The remaining LM families')")
 
 
 # ---------------------------------------------------------------------------

@@ -418,3 +418,52 @@ def test_reduced_qwen3_serves_through_kernel_like_torch_backend(cuda_device):
     torch.testing.assert_close(out["cuda"], out["torch"], atol=0.15,
                                rtol=0.1)
     assert torch.isfinite(out["cuda"]).all()
+
+
+def test_database_serves_through_the_cuda_engine(cuda_device):
+    """`Database` on the card: `fit` learns on the device program (the
+    pooled encode launched), the `cuda` engine serves Count, Range, Point
+    and kNN through the window and encode kernels, and every output equals
+    the `torch` engine's on the same card and the `cpu` engine's, forced
+    escalation and an update included; no query of the `cuda` engine
+    falls back to the CPU, and a Database with no engine attached and no
+    ``device=`` serves on `cuda`."""
+    from repro_torch import api
+
+    data = make_dataset("osm", 20000, seed=3)
+    Ls, Us = make_workload(data, 100, seed=4, width_scale=0.05)
+    cuda_lib.reset_launches()
+    db = api.Database.fit(data, (Ls, Us), K=32, sample=5000,
+                          smbo={"max_iters": 1, "evals_per_iter": 4},
+                          cfg=IndexConfig(page_bytes=2048))
+    assert cuda_lib.LAUNCHES["sfc_encode_pool"] > 0
+    knobs = dict(q_chunk=8, max_cand=4, max_hits=64)
+    db.engine("torch", api.EngineConfig(**knobs))
+    db.engine("cuda", api.EngineConfig(**knobs))
+    assert db.engines["cuda"].device.type == "cuda"
+    queries = [api.Count(Ls, Us), api.Range(Ls, Us),
+               api.Point(np.concatenate([data[::1000],
+                                         [[1, 2], [3, 4]]]).astype(np.uint64)),
+               api.Knn(data[:5], k=7), api.Knn(data[5:9], k=3,
+                                                metric="linf")]
+    db.insert(np.asarray([[5, 6], [7, 8]], dtype=np.uint64))
+    db.delete(data[17])
+    cuda_lib.reset_launches()
+    got = [db.query(q, engine="cuda") for q in queries]
+    for name in ("window_filter", "window_match", "sfc_encode"):
+        assert cuda_lib.LAUNCHES[name] > 0, name
+    assert got[0].escalations > 0
+    for engine in ("torch", "cpu"):
+        for g, w in zip(got, [db.query(q, engine=engine) for q in queries]):
+            for f in ("counts", "rows", "offsets", "found", "neighbors",
+                      "dists"):
+                if hasattr(w, f):
+                    np.testing.assert_array_equal(getattr(g, f),
+                                                  getattr(w, f))
+    for g in got:
+        assert g.exact and g.engine == "cuda" and g.cpu_fallbacks == 0
+    fresh = api.Database(db.index)          # no engine attached, no device
+    assert fresh.default_engine == "cuda"
+    res = fresh.query(queries[0])
+    assert res.engine == "cuda"
+    np.testing.assert_array_equal(res.counts, got[0].counts)

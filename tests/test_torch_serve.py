@@ -108,6 +108,42 @@ def test_count_and_range_match_reference(family, depth):
     np.testing.assert_array_equal(n_hits, want)
 
 
+@pytest.mark.parametrize("name,family", [("nyc", "global"),
+                                         ("nyc", "piecewise"),
+                                         ("stock", "global"),
+                                         ("stock", "piecewise")])
+def test_count_and_range_match_reference_in_three_and_four_dims(name,
+                                                                family):
+    """d 3 (NYC-like, K 21) and d 4 (stock-like, K 16), depth 1: Count and
+    Range equal the reference's `xla` path bit for bit, upper bounds at
+    2^K - 1 included, with max_cand=2 / max_hits=8 forcing both overflows;
+    the queries that fit are held against brute force.  The global curves
+    also run with budgets no query overflows.  (The reference's XLA
+    compile of a piecewise path takes 25-75 s a function here at d 4, so
+    the piecewise cases compile one budget pair.)"""
+    data, (Ls, Us), a, b = _indexes(family, n=4000, name=name, seed=9)
+    d, K = data.shape[1], a.K
+    assert d == (3 if name == "nyc" else 4) and K == default_K(d)
+    Us = Us.copy()
+    Us[:3] = 2**K - 1                    # the top of the key domain
+    rects = tsv.pack_query_rects(Ls, Us)
+    want = np.asarray([rq.brute_force_count(data, lo, hi)
+                       for lo, hi in zip(Ls, Us)])
+    counts, over, ids, n_hits, cand_over, hit_over = _run_both(
+        a, b, rects, max_cand=2, max_hits=8)
+    assert over.any() and cand_over.any() and hit_over.any()
+    fit = (over == 0) & (cand_over == 0)
+    assert fit.any()
+    np.testing.assert_array_equal(counts[fit], want[fit])
+    np.testing.assert_array_equal(n_hits[fit], want[fit])
+    if family == "global":
+        counts, over, _, n_hits, cand_over, hit_over = _run_both(
+            a, b, rects, max_cand=max(64, a.num_pages), max_hits=4096)
+        assert not over.any() and not cand_over.any() and not hit_over.any()
+        np.testing.assert_array_equal(counts, want)
+        np.testing.assert_array_equal(n_hits, want)
+
+
 def test_forced_overflow_matches_reference():
     """max_cand=1 overflows Count and Range candidates; max_hits=4
     truncates the id buffers.  Flags and truncated outputs must agree."""
