@@ -44,7 +44,34 @@ no result.  Phases, each printing one JSON line:
    pages; one batch with obs on equals it with obs off.  It prints q/s
    through `Database.query` beside the main phase's bare-function q/s,
    `CacheStats`, the span totals, launches and peak device memory;
-7. kernels_flash: the two flash attention kernels against their plain
+7. dp_paging: `paging="dp"` above 200k rows runs `dp_paging_torch` on the
+   card: the piecewise path's 1M NYC-like rows under its learned curve are
+   paged (seconds, pages, total score against `heuristic` and `fixed`: the
+   exact DP must score no worse than either) and built into an index, and
+   on a 250,000-row prefix the card's boundaries must equal
+   `dp_paging_np`'s on the host, element for element;
+8. store: the main path's 10M rows become an on-disk segment
+   (`build_segment`, a host external sort of 500k-row chunks under the
+   learned global curve, pages of 256 rows) under `build/`, opened with
+   `verify="full"`; `Database.from_segment(...).engine("store")` on the
+   kernels serves the database phase's traffic (4 Count and 4 Range
+   batches of 256, 256 Point probes, 2 x 16 kNN centers) cold and warm at
+   the default 256 MB page-group budget and again at 16 MB (evictions and
+   bypass; resident bytes never above the budget), every output held bit
+   for bit against the `store` engine on the plain twins on the card and
+   against the `cuda` engine over the segment's index in memory, samples
+   against brute force; build rows/s, q/s per kind, the cache's counters,
+   the assemble and upload span totals and a profiled warm batch; the
+   segment is removed at the end;
+9. serving: `Database.serve(engine="cuda")` over the database phase's
+   index under the JAX package's serving load (200 clients, Zipf 1.2,
+   Count 0.45 / Range 0.2 / Point 0.25 / kNN 0.1 with k 4; SLO p99 100
+   ms, batch_max 64, reject on overload) for 2 s at 250, 1,000 and 4,000
+   offered q/s: completion q/s, p50/p95/p99 from the scheduled arrivals,
+   shed counts and the controller's window; every served result equals
+   `replay_serial` of the served log on the `cuda` and on the `torch`
+   engine, bit for bit;
+10. kernels_flash: the two flash attention kernels against their plain
    twin `mha_ref` on the card (atol = rtol = 2e-5 for the float32 scalar
    kernel, 2e-2 for the bf16 tensor-core kernel, which is also held
    against `flash_tc_ref` at 1e-2: that twin rounds where the kernel
@@ -53,19 +80,21 @@ no result.  Phases, each printing one JSON line:
    `scaled_dot_product_attention` as a yardstick, at the LM path's shape
    (also as the model's (B, S, H, dh)-strided views) and the reference
    tests' shapes;
-8. lm_serve: qwen3-4b at its published widths and full depth (36 layers)
+11. lm_serve: qwen3-4b at its published widths and full depth (36 layers)
    on seeded random weights serves 4 requests of 2,048 seeded random
    tokens: one prefill through the bf16 flash kernel (exactly one launch
    per layer), the caches stitched into
    a state of 2,048 + 32 slots, 32 greedy decode steps; the prefill is
    held against the plain-torch attention backend on the card;
-9. launch check: every kernel ran on each path.
+12. launch check: every kernel ran on each path, and the window and
+   encode kernels in the store and serving phases too.
 
 The line before the last lists the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero without
 that line.  ``--osm-rows``/``--nyc-rows``/``--batches``/``--smbo-iters``/
-``--lm-layers``/``--decode-steps`` cut the depth for a quick run; the
-defaults are the full run.
+``--lm-layers``/``--decode-steps``/``--dp-prefix``/``--store-rows``/
+``--serve-seconds`` cut the depth for a quick run; the defaults are the
+full run.
 """
 from __future__ import annotations
 
@@ -92,6 +121,7 @@ K_MAXSPLIT = 4
 MAX_CAND = 256
 MAX_HITS = 65536
 MAIN_CAP = 1024                # page capacity of the main path's index
+CARD = None                    # nvidia-smi's name and power limit (setup)
 
 
 class SmokeFailure(Exception):
@@ -1241,11 +1271,461 @@ def phase_database(data, n_batches: int, seed: int, main_res: dict) -> dict:
         "peak_device_bytes": int(peak),
         "phase_s": time.perf_counter() - t_phase}
     emit(out)
+    # for the later phases, not printed: the database and its traffic
+    out["db"] = db
+    out["traffic"] = (batches, points, centers)
     return out
 
 
 # ---------------------------------------------------------------------------
-# phase 7: flash attention against its plain twin
+# phase 7: DP paging (paper Algorithm 2) on the card above 200k rows
+# ---------------------------------------------------------------------------
+
+DEVICE = "cuda"                # where the new phases put the port's tensors
+KERNEL_ENGINE = "cuda"         # the in-memory engine on the kernels
+DP_PREFIX = 250_000            # rows held element for element: above 200k
+
+
+def phase_dp_paging(data, curve, prefix: int) -> dict:
+    """`paging="dp"` on the card: `make_paging` takes `dp_paging_torch`
+    above 200k rows.  On the piecewise path's NYC-like rows (d 3) under
+    its learned curve it pages the whole set, scored against `heuristic`
+    and `fixed` on the same rows (the exact DP must score no worse than
+    either), builds the index through `LMSFCIndex.build(paging="dp")`,
+    and holds the card's boundaries on a `prefix`-row prefix equal to
+    `dp_paging_np`'s on the host, element for element."""
+    import numpy as np
+    import torch
+    from repro_torch.core import paging
+    from repro_torch.core.index import IndexConfig, LMSFCIndex
+
+    K = curve.K
+    d = data.shape[1]
+    keys = curve.encode_np(data)
+    xs = data[np.argsort(keys, kind="stable")].astype(np.int64)
+    smin, smax = paging.page_capacity(d)
+    check(len(xs) > 200_000 and prefix > 200_000,
+          "dp_paging: needs more than 200k rows to take the device DP")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dp = paging.make_paging(xs, "dp", K, device=DEVICE)
+    dp_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    heur = paging.make_paging(xs, "heuristic", K)
+    heur_s = time.perf_counter() - t0
+    fixed = paging.make_paging(xs, "fixed", K)
+    scores = {m: paging.total_score(xs, pg.starts, K)
+              for m, pg in (("dp", dp), ("heuristic", heur),
+                            ("fixed", fixed))}
+    check(scores["dp"] <= scores["heuristic"]
+          and scores["dp"] <= scores["fixed"],
+          f"dp_paging: the DP scores worse than heuristic or fixed {scores}")
+    sizes = np.diff(dp.starts)
+    check(sizes.max() <= smax and sizes[1:].min() >= smin,
+          "dp_paging: a page outside [smin, smax] after the first")
+    t0 = time.perf_counter()
+    index = LMSFCIndex.build(data, curve=curve, cfg=IndexConfig(paging="dp"),
+                             device=DEVICE)
+    build_s = time.perf_counter() - t0
+    check(np.array_equal(index.starts, dp.starts),
+          "dp_paging: LMSFCIndex.build(paging='dp') paged otherwise")
+    head = xs[:prefix]
+    t0 = time.perf_counter()
+    card = paging.dp_paging_torch(head, smin, smax, K, device=DEVICE)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = paging.dp_paging_np(head, smin, smax, K)
+    host_s = time.perf_counter() - t0
+    check(np.array_equal(card, host),
+          f"dp_paging: the card's boundaries on {prefix} rows differ from "
+          f"dp_paging_np's ({len(card)} vs {len(host)} boundaries)")
+    out = {"phase": "dp_paging", "card": CARD, "rows": int(len(xs)), "d": d,
+           "K": K, "curve": curve.kind, "smin": smin, "smax": smax,
+           "dp_s": dp_s, "heuristic_s": heur_s, "build_s": build_s,
+           "pages": {"dp": dp.num_pages, "heuristic": heur.num_pages,
+                     "fixed": fixed.num_pages},
+           "score": scores,
+           "steps": -(-(len(xs) + 1 - smin) // smin),
+           "peak_device_bytes": int(peak),
+           "prefix": {"rows": prefix, "pages": int(len(card) - 1),
+                      "card_s": card_s, "dp_paging_np_s": host_s,
+                      "equal": True}}
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the store, out-of-core serving from cached device page groups
+# ---------------------------------------------------------------------------
+
+STORE_CHUNK = 500_000          # rows a build chunk
+STORE_SMALL_BUDGET = 16 << 20  # forces evictions and bypass (~120 blocks;
+                               # a fifth of the groups on a cut segment)
+
+
+def _store_pass(db, traffic, name: str, budget=None):
+    """Serve the database phase's traffic once through the attached
+    engine: per kind the results and the seconds; the cache's resident
+    bytes are read after every query and must stay within `budget`."""
+    from repro_torch import api
+    import torch
+    batches, points, centers = traffic
+    eng = db.engines[db.active_engine]
+    out, secs = {}, {}
+    worst = 0
+
+    def run(q):
+        nonlocal worst
+        r = db.query(q)
+        if budget is not None:
+            worst = max(worst, eng.cache.resident_bytes)
+            check(eng.cache.resident_bytes <= budget,
+                  f"store: {name}: {eng.cache.resident_bytes} resident "
+                  f"bytes over the {budget}-byte budget")
+        return r
+
+    for kind, make in (("count", api.Count), ("range", api.Range)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[kind] = [run(make(*b)) for b in batches]
+        secs[kind] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["point"] = [run(api.Point(points))]
+    secs["point"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["knn"] = [run(api.Knn(centers, k=10, metric=m))
+                  for m in ("l2", "linf")]
+    secs["knn"] = time.perf_counter() - t0
+    qps = {"count": sum(len(b[0]) for b in batches) / secs["count"],
+           "range": sum(len(b[0]) for b in batches) / secs["range"],
+           "point": len(points) / secs["point"],
+           "knn": 2 * len(centers) / secs["knn"]}
+    return out, secs, qps, worst
+
+
+ANSWER_FIELDS = ("counts", "rows", "offsets", "found", "neighbors", "dists")
+
+
+def _same_answers(name: str, got: dict, want: dict, plain: bool) -> None:
+    """Two passes' results equal kind by kind: every answer, and against
+    the plain twins' pass (`plain`) the overflow flags and escalations
+    too."""
+    import numpy as np
+    for kind in got:
+        for i, (g, w) in enumerate(zip(got[kind], want[kind])):
+            for f in DB_FIELDS if plain else ANSWER_FIELDS:
+                if hasattr(w, f):
+                    check(np.array_equal(getattr(g, f), getattr(w, f)),
+                          f"store: {name}: {kind} {i}: {f} differs")
+            check(not plain or (g.escalations, g.cpu_fallbacks)
+                  == (w.escalations, w.cpu_fallbacks),
+                  f"store: {name}: {kind} {i}: escalations differ")
+
+
+def phase_store(data, curve, traffic, seed: int) -> dict:
+    """Out-of-core serving on the card: `build_segment` (host external
+    sort) of the main path's rows from 500k-row chunks under its learned
+    curve, `open_segment(verify="full")`, `Database.from_segment(...)
+    .engine("store")` on the kernels serving the database phase's traffic
+    cold and warm at the default 256 MB budget and again at 16 MB
+    (evictions and bypass); every output held bit for bit against the
+    `store` engine on the plain twins on the card and the `cuda` engine
+    over `seg.as_index()` in memory, samples against brute force.  Launch
+    counts are set to 0 just before the kernels' store runs and read just
+    after them."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import api, obs
+    from repro_torch.api.deltas import rows_in_set
+    from repro_torch.core.query import brute_force_count, brute_force_range
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.store import build_segment, open_segment
+    from repro_torch.store.engine import (DEFAULT_CACHE_BYTES,
+                                          DEFAULT_GROUP_PAGES)
+
+    path = ROOT / "build" / "store_segment"
+    shutil.rmtree(path, ignore_errors=True)
+    knobs = dict(q_chunk=Q_CHUNK, max_cand=MAX_CAND, max_hits=MAX_HITS)
+    try:
+        chunks = (data[i:i + STORE_CHUNK]
+                  for i in range(0, len(data), STORE_CHUNK))
+        t0 = time.perf_counter()
+        build_segment(chunks, str(path), curve=curve, page_rows=256)
+        build_s = time.perf_counter() - t0
+        seg_bytes = sum(p.stat().st_size for p in path.iterdir())
+        t0 = time.perf_counter()
+        seg = open_segment(str(path), verify="full")
+        open_s = time.perf_counter() - t0
+        rows = np.asarray(seg.xs)
+        check(0.99 * len(data) <= seg.n <= len(data),
+              f"store: the segment holds {seg.n} of {len(data)} rows")
+        db = api.Database.from_segment(seg, device=DEVICE)
+        block = seg.group_nbytes(DEFAULT_GROUP_PAGES)
+
+        # the kernels: cold, then warm, at the default budget; then 16 MB
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lib.reset_launches()
+        db.engine("store", api.EngineConfig(**knobs))
+        eng = db.engines["store"]
+        check(eng.backend == "cuda" and eng.device.type == DEVICE,
+              "store: the store engine is not on the kernels and the card")
+        got, secs, qps, cache = {}, {}, {}, {}
+        # the warm pass times the per-query memmap row gather of Range
+        gather = {"s": 0.0, "calls": 0}
+        resolve = eng._resolve_rows
+
+        def timed_resolve(*a):
+            t = time.perf_counter()
+            rows_ = resolve(*a)
+            gather["s"] += time.perf_counter() - t
+            gather["calls"] += 1
+            return rows_
+
+        for run in ("cold", "warm"):
+            if run == "warm":
+                eng._resolve_rows = timed_resolve
+            got[run], secs[run], qps[run], _ = _store_pass(
+                db, traffic, run, DEFAULT_CACHE_BYTES)
+            cache[run] = dataclasses.asdict(eng.cache.stats.snapshot())
+        eng._resolve_rows = resolve
+        # one warm batch of each under the profiler (default budget)
+        profile = {"count": profile_batch(
+            lambda: db.query(api.Count(*traffic[0][0]))),
+            "range": profile_batch(
+            lambda: db.query(api.Range(*traffic[0][0])))}
+        check(cache["cold"]["misses"] > 0 and cache["warm"]["hits"]
+              > cache["cold"]["hits"], "store: the warm pass missed")
+        small_budget = min(STORE_SMALL_BUDGET, max(
+            1, seg.num_groups(DEFAULT_GROUP_PAGES) // 5) * block)
+        db.engine("store", api.EngineConfig(cache_bytes=small_budget,
+                                            **knobs))
+        small = db.engines["store"]
+        obs.enable()
+        got["small"], secs["small"], qps["small"], worst = _store_pass(
+            db, traffic, "small budget", small_budget)
+        spans = _span_totals(obs.snapshot(), (
+            "store.assemble", "store.cache.upload", "executor.device_call",
+            "executor.execute"))
+        obs.disable()
+        obs.reset()
+        cache["small"] = dataclasses.asdict(small.cache.stats.snapshot())
+        check(cache["small"]["evictions"] > 0 and cache["small"]["bypass"]
+              > 0, "store: the small budget forced no eviction or bypass")
+        launches = dict(cuda_lib.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        for name in ("window_filter", "window_match", "sfc_encode"):
+            check(launches[name] > 0, f"store: {name} was not launched")
+        for run in got:
+            for kind, rs in got[run].items():
+                for r in rs:
+                    check(r.engine == "store" and r.cpu_fallbacks == 0,
+                          f"store: {run} {kind} left the card")
+
+        # the same traffic on the plain twins on the card, and through the
+        # in-memory kernels' engine over the segment's index
+        db.engine("store", api.EngineConfig(backend="torch", **knobs))
+        before = dict(cuda_lib.LAUNCHES)
+        twin, twin_s, twin_qps, _ = _store_pass(db, traffic, "torch",
+                                                DEFAULT_CACHE_BYTES)
+        check(cuda_lib.LAUNCHES == before,
+              "store: the torch backend launched a kernel")
+        mem = api.Database(seg.as_index(), device=DEVICE)
+        mem.engine(KERNEL_ENGINE, api.EngineConfig(**knobs))
+        t0 = time.perf_counter()
+        mem.engines[KERNEL_ENGINE].sync()      # pack + upload, not timed
+        mem_pack_s = time.perf_counter() - t0
+        inmem, inmem_s, inmem_qps, _ = _store_pass(mem, traffic, "in memory")
+        for run in ("cold", "warm", "small"):
+            _same_answers(f"{run} against the torch backend", got[run], twin,
+                          plain=True)
+            _same_answers(f"{run} against the in-memory engine", got[run],
+                          inmem, plain=False)
+
+        # brute force over the segment's rows, on samples
+        batches, points, centers = traffic
+        counts = np.concatenate([r.counts for r in got["warm"]["count"]])
+        Ls = np.concatenate([b[0] for b in batches])
+        Us = np.concatenate([b[1] for b in batches])
+        pick = np.random.default_rng(seed + 11).permutation(len(Ls))
+        for t in pick[:32]:
+            want = brute_force_count(rows, Ls[t], Us[t])
+            check(counts[t] == want, f"store: count {counts[t]} != brute "
+                                     f"{want} (query {t})")
+        for t in pick[:8]:
+            rr = got["warm"]["range"][t // BATCH]
+            check(np.array_equal(rr.rows_for(t % BATCH),
+                                 brute_force_range(rows, Ls[t], Us[t])),
+                  f"store: range rows differ from brute force (query {t})")
+        found = got["warm"]["point"][0].found
+        for m, kr in zip(("l2", "linf"), got["warm"]["knn"]):
+            for i in range(4):
+                nb, dists = _brute_knn(rows, centers[i], 10, m)
+                check(np.array_equal(kr.neighbors_for(i), nb)
+                      and np.array_equal(kr.dists_for(i), np.asarray(
+                          dists, dtype=np.float64)),
+                      f"store: {m} kNN of center {i} differs from brute "
+                      f"force")
+        check(np.array_equal(found, rows_in_set(points, rows)),
+              "store: point lookups disagree with the segment's rows")
+        n_q = len(Ls)
+        out = {
+            "phase": "store", "card": CARD, "rows_in": int(len(data)),
+            "rows": int(seg.n), "d": int(seg.d), "K": int(seg.K),
+            "curve": seg.curve.kind, "pages": int(seg.num_pages),
+            "cap": int(seg.cap), "page_rows": 256,
+            "group_pages": DEFAULT_GROUP_PAGES,
+            "groups": int(seg.num_groups(DEFAULT_GROUP_PAGES)),
+            "block_bytes": int(block), "segment_bytes": int(seg_bytes),
+            "build_s": build_s, "build_rows_per_s": len(data) / build_s,
+            "open_full_s": open_s,
+            "queries": {"count": n_q, "range": n_q, "point": len(points),
+                        "knn": 2 * len(centers)},
+            "qps": qps, "seconds": secs,
+            "qps_torch_backend_cold": twin_qps,
+            "qps_in_memory_cuda": inmem_qps, "in_memory_pack_s": mem_pack_s,
+            "budgets": {"default": DEFAULT_CACHE_BYTES,
+                        "small": small_budget},
+            "small_worst_resident_bytes": int(worst),
+            "warm_row_gather": gather,
+            "cache": cache, "obs_spans_small": spans,
+            "escalations": {k: [r.escalations for r in got["warm"][k]]
+                            for k in ("count", "range")},
+            "profile_warm": profile,
+            "launches": launches, "peak_device_bytes": int(peak)}
+        emit(out)
+        return out
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the async serving front under open-loop load
+# ---------------------------------------------------------------------------
+
+SERVE_RATES = (250.0, 1_000.0, 4_000.0)
+# the load and SLO of the JAX package's serving sweep (BENCH_serving.json
+# "config"): 200 clients, Zipf 1.2, the default kind mix, kNN k 4
+SERVE_LOAD = dict(n_clients=200, zipf_a=1.2, knn_k=4,
+                  mix=(("count", 0.45), ("range", 0.20), ("point", 0.25),
+                       ("knn", 0.10)))
+SERVE_SLO = dict(p99_target_ms=100.0, max_queue=4096, overload="reject",
+                 batch_max=64, window_init_ms=2.0, window_min_ms=0.0,
+                 window_max_ms=100.0, grow_ms=2.0, shrink=0.5, headroom=0.3,
+                 sample_window=256, min_samples=16, adaptive=True,
+                 max_retries=2)
+
+
+def phase_serving(db, data, seconds: float, seed: int) -> dict:
+    """`Database.serve(engine="cuda")` over the database phase's 10M-row
+    index under the JAX package's serving load, `seconds` at each offered
+    rate: completion q/s, latency quantiles from the scheduled arrival,
+    shed counts and the controller's window.  Every served result is held
+    bit for bit against `replay_serial` of the served log on the `cuda`
+    engine and on the `torch` engine.  Launch counts are set to 0 just
+    before the served runs and read just after them."""
+    import torch
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.serving import (LoadSpec, SLOConfig, assert_bit_identical,
+                                     make_query_log, replay_serial,
+                                     run_open_loop)
+
+    K = db.index.K
+    logs = {rate: make_query_log(data, LoadSpec(
+        rate_qps=rate, duration_s=seconds, seed=seed + int(rate),
+        **SERVE_LOAD), K=K) for rate in SERVE_RATES}
+    # warm the engines' buckets outside the measured runs (the SLO's
+    # batches are at most batch_max queries: the q_chunk buckets up to it)
+    warm = make_query_log(data, LoadSpec(rate_qps=2_000.0, duration_s=0.25,
+                                         seed=seed + 1, **SERVE_LOAD), K=K)
+    for engine in (KERNEL_ENGINE, "torch"):
+        with db.serve(slo=SLOConfig(**SERVE_SLO), engine=engine) as srv:
+            run_open_loop(srv, warm)
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    points, served = [], {}
+    for rate in SERVE_RATES:
+        srv = db.serve(slo=SLOConfig(**SERVE_SLO), engine=KERNEL_ENGINE)
+        try:
+            pt = run_open_loop(srv, logs[rate])
+        finally:
+            srv.close(timeout=600)
+        check(not srv._thread.is_alive(), "serving: the drain loop hangs")
+        st = srv.stats()
+        check(pt["failed"] == 0 and st["failed"] == 0,
+              f"serving: {pt['failed']} tickets failed at {rate} q/s")
+        check(pt["completed"] == pt["admitted"],
+              f"serving: {pt['admitted'] - pt['completed']} admitted "
+              f"queries unresolved at {rate} q/s")
+        served[rate] = (srv.query_log(), pt.pop("results"))
+        lat = pt["latency_ms"]
+        points.append({
+            "offered_qps": rate, "scheduled": pt["scheduled"],
+            "admitted": pt["admitted"], "shed": pt["shed"],
+            "completed": pt["completed"],
+            "sustained_qps": pt["sustained_qps"], "span_s": pt["span_s"],
+            "p50_ms": lat["p50"], "p95_ms": lat["p95"], "p99_ms": lat["p99"],
+            "mean_ms": lat["mean"], "batches": st["batches"],
+            "mean_batch_fill": pt["completed"] / max(1, st["batches"]),
+            "window_final_ms": st["controller"]["window_ms"],
+            "controller_grows": st["controller"]["grows"],
+            "controller_shrinks": st["controller"]["shrinks"]})
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.LAUNCHES)
+    for name in ("window_filter", "window_match", "sfc_encode"):
+        check(launches[name] > 0, f"serving: {name} was not launched")
+    # exactness: replay each served log serially on both engines, one
+    # entry at a time (its result dropped once compared), timed by kind
+    checked, replay_s = {}, {}
+    for engine in (KERNEL_ENGINE, "torch"):
+        by_kind = {}
+        for rate, (log, results) in served.items():
+            for entry in log:
+                seq, q = entry
+                t0 = time.perf_counter()
+                want = replay_serial(db, [entry], engine=engine)[seq]
+                k = by_kind.setdefault(q.kind, [0, 0.0])
+                k[0] += 1
+                k[1] += time.perf_counter() - t0
+                assert_bit_identical(results[seq], want,
+                                     context=f"{engine} {rate} seq{seq}")
+        checked[engine] = sum(n for n, _ in by_kind.values())
+        replay_s[engine] = {kind: {"queries": n, "s": t,
+                                   "mean_ms": 1e3 * t / n}
+                            for kind, (n, t) in by_kind.items()}
+    # the device's share of a short served run (its launches come after
+    # the counts were read)
+    short = make_query_log(data, LoadSpec(
+        rate_qps=SERVE_RATES[0], duration_s=0.5, seed=seed + 2,
+        **SERVE_LOAD), K=K)
+
+    def served_short():
+        with db.serve(slo=SLOConfig(**SERVE_SLO), engine=KERNEL_ENGINE) as s:
+            run_open_loop(s, short)
+
+    profile = profile_batch(served_short)
+    kinds = {}
+    for log, _ in served.values():
+        for _, q in log:
+            kinds[q.kind] = kinds.get(q.kind, 0) + 1
+    out = {"phase": "serving", "card": CARD, "rows": int(db.n),
+           "engine": KERNEL_ENGINE, "seconds_per_rate": seconds,
+           "slo": SERVE_SLO, "load": {k: v for k, v in SERVE_LOAD.items()
+                                      if k != "mix"},
+           "mix": dict(SERVE_LOAD["mix"]), "served_kinds": kinds,
+           "points": points, "replay_checked": checked,
+           "replay_s": replay_s, "profile_short_run": profile,
+           "launches": launches}
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: flash attention against its plain twin
 # ---------------------------------------------------------------------------
 
 LM_ARCH = "qwen3-4b"
@@ -1392,7 +1872,7 @@ def phase_kernels_flash(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 8: qwen3-4b prefill + decode serving on the card
+# phase 11: qwen3-4b prefill + decode serving on the card
 # ---------------------------------------------------------------------------
 
 
@@ -1549,6 +2029,13 @@ def main(argv=None) -> int:
     ap.add_argument("--lm-layers", type=int, default=36,
                     help="layers of the served qwen3-4b (36 = full depth)")
     ap.add_argument("--decode-steps", type=int, default=32)
+    ap.add_argument("--dp-prefix", type=int, default=DP_PREFIX,
+                    help="rows held against dp_paging_np (above 200k)")
+    ap.add_argument("--store-rows", type=int, default=None,
+                    help="rows of the store's segment (default: all of "
+                         "--osm-rows)")
+    ap.add_argument("--serve-seconds", type=float, default=2.0,
+                    help="seconds of offered load at each serving rate")
     args = ap.parse_args(argv)
 
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -1563,7 +2050,9 @@ def main(argv=None) -> int:
         return 2
     from repro_torch.data.synth import make_dataset
 
-    int_ops_per_s = phase_setup()["int_ops_per_s"]
+    global CARD
+    setup = phase_setup()
+    CARD, int_ops_per_s = setup["card"], setup["int_ops_per_s"]
     t0 = time.perf_counter()
     osm = make_dataset("osm", args.osm_rows, seed=0)
     nyc = make_dataset("nyc", args.nyc_rows, seed=1)
@@ -1584,6 +2073,11 @@ def main(argv=None) -> int:
     main_res = phase_main(osm, args.batches, main_curve)
     pw_res = phase_piecewise(nyc, args.batches, pw_curve)
     db_res = phase_database(osm, args.batches, args.seed, main_res)
+    phase_dp_paging(nyc, pw_curve, args.dp_prefix)
+    store_res = phase_store(osm[:args.store_rows], main_curve,
+                            db_res.pop("traffic"), args.seed)
+    serving_res = phase_serving(db_res.pop("db"), osm, args.serve_seconds,
+                                args.seed)
     del osm, nyc
     flash = phase_kernels_flash(args.seed)
     lm = phase_lm_serve(args.seed, args.lm_layers, args.decode_steps)
@@ -1618,6 +2112,11 @@ def main(argv=None) -> int:
         if pw_path is not None:
             row["piecewise_launches"] = pw_path["launches"][name]
         row["database_launches"] = db_res["launches"][name]
+        row["store_launches"] = store_res["launches"][name]
+        row["serving_launches"] = serving_res["launches"][name]
+        if name in ("window_filter", "window_match", "sfc_encode"):
+            check(row["store_launches"] > 0 and row["serving_launches"] > 0,
+                  f"{name} was not launched by the store or the server")
         if off_path:
             row["held_launches"] = flash["held_launches"][name]
         rows.append(row)

@@ -3,11 +3,12 @@
 One object (`Database`) covers the paper's whole pipeline — SMBO curve
 learning (a global θ or a BMTree-style `PiecewiseCurve`), index build,
 window queries on any execution engine (CPU, the plain-torch 'torch'
-engine, the 'cuda' engine on the hand-written kernels), LMSFCb delta
-updates, and LMSFCa rebuilds — with exact counts by construction on every
-engine.  It mirrors `repro.api` of the JAX package name for name, less
-the multi-shard `Router` / `RouterPlan` / `ShardSpec` and the
-'distributed' and 'store' engines (ROADMAP Queue 1 items 7 and 4).
+engine, the 'cuda' engine on the hand-written kernels, the 'store'
+engine over an on-disk segment), LMSFCb delta updates, and LMSFCa
+rebuilds — with exact counts by construction on every engine.  It mirrors
+`repro.api` of the JAX package name for name, less the multi-shard
+`Router` / `RouterPlan` / `ShardSpec` and the 'distributed' engine
+(ROADMAP Queue 1 item 7).
 
 Execution is first-class (`repro_torch.api.exec`): `db.explain(q)`
 returns the structured `QueryPlan` (engine routing, shape buckets,

@@ -125,6 +125,7 @@ class Database:
         self.policy = policy or FractionRebuildPolicy()
         self.workload = workload
         self.device = device            # device engines' default (None: CUDA)
+        self._segment = None            # repro_torch.store.Segment if attached
         self.rebuild_pending = False
         self.fit_result = None          # SMBOResult when θ was learned
         self._engines = {}
@@ -189,26 +190,42 @@ class Database:
             sp.label(learned=fit_result is not None)
             with obs.span("database.fit.build"):
                 index = LMSFCIndex.build(data, curve=fixed, cfg=cfg,
-                                         workload=workload)
+                                         workload=workload, device=device)
         db = cls(index, policy=policy, workload=workload, device=device)
         db.fit_result = fit_result
         return db
 
     @classmethod
-    def from_segment(cls, segment, **kw) -> "Database":
-        """Attach to an on-disk segment: comes with the port of the
-        store (ROADMAP Queue 1 item 4)."""
-        raise NotImplementedError(
-            "Database.from_segment needs the port of store/ (ROADMAP "
-            "Queue 1 item 4)")
+    def from_segment(cls, segment, *, verify: str = "full",
+                     cfg: IndexConfig = None, policy: RebuildPolicy = None,
+                     workload=None, device=None) -> "Database":
+        """Attach to an on-disk segment (`repro_torch.store`): the row
+        store is memory-mapped, only page metadata is loaded, and queries
+        serve through the regular engine surface — the CPU engine walks
+        the memmap-backed index directly, and ``db.engine("store")`` adds
+        the device path with an LRU of resident page groups on `device`
+        (CUDA unless the caller passes ``device="cpu"``).
+
+        `segment` is a segment directory path (built by
+        `repro_torch.store.build_segment` / `write_segment_from_index`, or
+        by the JAX package's: the format is shared) or an already-opened
+        `repro_torch.store.Segment`; `verify` forwards to `open_segment`
+        (``"full"`` checksums the row store too).
+        """
+        from ..store import open_segment          # lazy: store imports api
+        from ..store import engine as _           # noqa: F401 — registers
+        if isinstance(segment, str):
+            segment = open_segment(segment, verify=verify)
+        db = cls(segment.as_index(cfg), policy=policy, workload=workload,
+                 device=device)
+        db._segment = segment
+        return db
 
     @property
     def segment(self):
-        """The attached on-disk segment: comes with the port of the store
-        (ROADMAP Queue 1 item 4)."""
-        raise NotImplementedError(
-            "Database.segment needs the port of store/ (ROADMAP Queue 1 "
-            "item 4)")
+        """The attached `repro_torch.store.Segment` (None on in-memory
+        builds)."""
+        return self._segment
 
     @property
     def curve(self) -> MonotonicCurve:
@@ -308,11 +325,17 @@ class Database:
         return Session(self, engine=engine, tick=tick)
 
     def serve(self, *, slo=None, engine: str = None):
-        """An async serving front over this database: comes with the port
-        of serving/ (ROADMAP Queue 1 item 5)."""
-        raise NotImplementedError(
-            "Database.serve needs the port of serving/ (ROADMAP Queue 1 "
-            "item 5)")
+        """An async serving front (`repro_torch.serving.AsyncServer`) over
+        this database: thread-safe non-blocking ``submit(query)``
+        returning futures, a background drain loop coalescing submissions
+        into engine super-batches through the Session/Executor path,
+        SLO-driven adaptive batching, admission control, and
+        weighted-fair per-kind dequeue.  `slo` is a
+        `repro_torch.serving.SLOConfig` (p99 target, queue bound, overload
+        policy); results stay bit-identical to serial `query` calls.
+        Close it (or use ``with``) to drain and stop."""
+        from ..serving.server import AsyncServer   # lazy: serving imports api
+        return AsyncServer(self, slo=slo, engine=engine)
 
     # ------------------------------------------------------------------
     # updates (LMSFCb deltas + LMSFCa rebuild)
@@ -373,8 +396,16 @@ class Database:
                                            device=self.device)
             curve = self.fit_result.curve_best
         self.index = LMSFCIndex.build(data, curve=curve, cfg=self.index.cfg,
-                                      workload=wl)
+                                      workload=wl, device=self.device)
         self.rebuild_pending = False
+        if self._segment is not None:
+            # the rebuilt index is in-memory; the on-disk snapshot no
+            # longer backs it, so detach it (and the store engine with it
+            # — persist again via repro_torch.store.write_segment_from_index)
+            self._segment = None
+            dead = self._engines.pop("store", None)
+            if dead is not None and self._active == "store":
+                self._active = None
         for eng in self._engines.values():
             eng.invalidate()
         return self

@@ -21,9 +21,12 @@ engine.
            reference's 'pallas').  Its device must be a CUDA device: it
            raises at attach otherwise, and never serves through the twins.
 
-The reference's 'distributed' engine waits for the multi-device slice and
-its 'store' engine for the store (ROADMAP Queue 1 items 7 and 4);
-`make_engine` raises `NotImplementedError` for both.
+  store  — segment-backed out-of-core serving through cached device page
+           groups (`repro_torch.store.engine`; registered on first use).
+
+The reference's 'distributed' engine waits for the multi-device slice
+(ROADMAP Queue 1 item 7); `make_engine` raises `NotImplementedError` for
+it.
 
 Device engines keep a host-side copy of their `ServingArrays` plus the
 DeltaStore epoch they were packed at; `sync()` re-packs only the pages
@@ -54,14 +57,11 @@ _CAPABILITIES = {}
 _WAITING = {
     "distributed": "the distributed engine comes with the multi-device "
                    "slice (ROADMAP Queue 1 item 7)",
-    "store": "the store engine comes with the port of store/ (ROADMAP "
-             "Queue 1 item 4)",
 }
 _RENAMED = {"xla": "torch", "pallas": "cuda"}
 # EngineConfig fields that only those engines read: set, they would be
 # silently ignored, so attaching with one raises
-_WAITING_FIELDS = {"mesh": "distributed", "group_pages": "store",
-                   "cache_bytes": "store"}
+_WAITING_FIELDS = {"mesh": "distributed"}
 
 
 class StaleServingError(RuntimeError):
@@ -89,6 +89,8 @@ def engine_capabilities() -> dict:
 
 
 def make_engine(name: str, db, config: EngineConfig = None):
+    if name == "store" and name not in _ENGINES:
+        from ..store import engine as _store_engine  # noqa: F401 — registers
     if name in _WAITING and name not in _ENGINES:
         raise NotImplementedError(f"engine {name!r}: {_WAITING[name]}")
     if name not in _ENGINES:

@@ -23,8 +23,8 @@ Guarantees:
   called from concurrent threads: submission order (the demux key) is
   allocated under a lock, and a flush drains an atomic snapshot of the
   queue while later submissions keep accumulating.  This is the
-  substrate an async serving front drives, but it holds as a standalone
-  Session guarantee.
+  substrate the async serving front (`repro_torch.serving.AsyncServer`)
+  drives, but it holds as a standalone Session guarantee.
 
 Quickstart::
 
@@ -50,7 +50,8 @@ class ServingTimeout(TimeoutError):
     """A ticket was not resolved in time: `Ticket.result(timeout=...)`
     gave up waiting, or a ticket is still unresolved after its session
     flushed (e.g. it was `Session.discard`ed, or another thread's flush
-    holds it)."""
+    holds it).  Also raised by the serving front's futures
+    (`repro_torch.serving.ServerTicket.result`)."""
 
 
 @dataclasses.dataclass

@@ -33,10 +33,13 @@ class EngineConfig:
     max_hits: int = 1024       # initial per-query row-id buffer for Range
                                #   retrieval (escalated like max_cand)
     q_chunk: int = 16          # query chunk; queries are padded to a multiple
-    backend: str = None        # filter/encode path, one per engine:
-                               #   'torch' (plain twins) on the 'torch'
-                               #   engine, 'cuda' (the hand-written
-                               #   kernels) on the 'cuda' engine
+    backend: str = None        # filter/encode path: 'torch' (plain
+                               #   twins) on the 'torch' engine, 'cuda'
+                               #   (the hand-written kernels) on the
+                               #   'cuda' engine; the 'store' engine takes
+                               #   either ('cuda' on a CUDA device, the
+                               #   default there; 'torch' the default
+                               #   only under device="cpu")
     device: Any = None         # device engines: where the serving arrays
                                #   live (None: the Database's device, else
                                #   CUDA; the 'cuda' engine needs a CUDA one)
@@ -48,13 +51,10 @@ class EngineConfig:
     cpu_fallback: bool = True  # final exactness net if escalation is exhausted
     on_stale: str = "refresh"  # when device arrays predate the DeltaStore
                                #   epoch: 'refresh' | 'error' | 'serve_stale'
-    group_pages: int = None    # store engine (not yet in the port; set,
-                               #   attaching raises): pages per cached
-                               #   device block (default 64)
-    cache_bytes: int = None    # store engine (not yet in the port; set,
-                               #   attaching raises): page-group cache
-                               #   budget — a hard resident-bytes bound
-                               #   (default 256MB)
+    group_pages: int = None    # store engine: pages per cached device block
+                               #   (default 64)
+    cache_bytes: int = None    # store engine: page-group cache budget —
+                               #   a hard resident-bytes bound (default 256MB)
 
 
 @dataclasses.dataclass

@@ -141,7 +141,7 @@ def evaluate_pool(curves, data: np.ndarray, Ls: np.ndarray, Us: np.ndarray,
         pool = device_curve_pool(curves, dev)
         keys = pool_keys(pool, data, dev, backend)
     idxs = [LMSFCIndex.build(data, curve=c, cfg=cfg, workload=(Ls, Us), K=K,
-                             z=z) for c, z in zip(curves, keys)]
+                             z=z, device=dev) for c, z in zip(curves, keys)]
     results = run_workload_pool(idxs, Ls, Us, engine=engine, device=dev,
                                 backend=backend, pool=pool)
     return np.array([_stats_cost(agg, max(1, nq)) for _, agg in results],

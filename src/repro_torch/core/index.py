@@ -83,7 +83,8 @@ class LMSFCIndex:
     @staticmethod
     def build(data: np.ndarray, theta=None, cfg: IndexConfig = None,
               workload=None, K: int = None, *,
-              curve=None, z: np.ndarray = None) -> "LMSFCIndex":
+              curve=None, z: np.ndarray = None,
+              device=None) -> "LMSFCIndex":
         """data: (n, d) non-negative ints < 2^K, duplicate-free.
 
         The SFC is given as `curve` (any `MonotonicCurve`, a legacy `Theta`,
@@ -92,6 +93,9 @@ class LMSFCIndex:
         given, is the curve's uint64 keys of `data` (n,) computed elsewhere
         (the SMBO evaluator encodes a whole pool in one device launch); it
         must equal ``curve.encode_np(data)``, and the index is then the same.
+        `device` is where ``paging="dp"`` runs above 200k rows (CUDA unless
+        the caller passes ``device="cpu"``); every other build stays on the
+        host.
         """
         cfg = cfg or IndexConfig()
         data = np.asarray(data, dtype=np.uint64)
@@ -122,7 +126,7 @@ class LMSFCIndex:
         pg = paging_mod.make_paging(
             xs.astype(np.int64), cfg.paging, K,
             page_bytes=cfg.page_bytes, fill_factor=cfg.fill_factor,
-            alpha=cfg.alpha)
+            alpha=cfg.alpha, device=device)
         starts = pg.starts
         page_zmin = zs[starts[:-1]]
         page_zmax = zs[starts[1:] - 1]

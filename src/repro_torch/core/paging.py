@@ -10,8 +10,8 @@ Three methods:
                             vectorized: one numpy call per *page*.
   * ``dp_paging_np``      — the paper's Algorithm 2, exact O(n·(smax-smin))
                             with sparse-table range-MBR queries.
-  (The reference's ``dp_paging_jax``, its ``lax.scan`` twin for n > 200k, is
-  not ported yet: ``make_paging`` raises for that case.)
+  * ``dp_paging_torch``   — the same DP on a device for large n, in blocks
+                            of ``smin`` positions; same boundaries.
 
 Volumes are normalized to [0,1]^d (extent+1 unit cells / 2^K) so scores are
 well-conditioned for any K.
@@ -21,6 +21,9 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
+
+from .device import resolve_device
 
 
 def page_capacity(d: int, page_bytes: int = 8192, fill_factor: float = 0.25,
@@ -101,7 +104,7 @@ def heuristic_paging(xs: np.ndarray, smin: int, smax: int, K: int,
 
 
 # ---------------------------------------------------------------------------
-# sparse table for range-MBR queries (DP paging)
+# sparse table for range-MBR queries (shared by both DP variants)
 # ---------------------------------------------------------------------------
 
 
@@ -169,6 +172,89 @@ def dp_paging_np(xs: np.ndarray, smin: int, smax: int, K: int) -> np.ndarray:
     return np.asarray(bounds[::-1], dtype=np.int64)
 
 
+def _prefix_opt(xs: np.ndarray, smin: int, K: int) -> np.ndarray:
+    """OPT[1 .. smin-1]: the one undersized first page, as `dp_paging_np`
+    scores it (running MBR of the first i rows over i)."""
+    m = min(smin, len(xs) + 1) - 1
+    seg = xs[:m].astype(np.int64)
+    lo = np.minimum.accumulate(seg, axis=0)
+    hi = np.maximum.accumulate(seg, axis=0)
+    return _norm_vol(lo, hi, K) / np.arange(1, m + 1)
+
+
+def dp_paging_torch(xs: np.ndarray, smin: int, smax: int, K: int,
+                    device=None) -> np.ndarray:
+    """`dp_paging_np`'s recurrence on `device` (CUDA unless the caller
+    passes ``device="cpu"``), with the same boundaries.
+
+    Every candidate of OPT[i] reads OPT[i - s] with s >= smin, so the smin
+    values OPT[i0 .. i0+smin-1] depend only on entries below i0: each step
+    scores one (smin, smax-smin+1) tile of (position, page size) candidates
+    at once, n/smin steps in all.  The arithmetic is `dp_paging_np`'s:
+    float64 throughout, extents formed in int64 before the cast, the d
+    factors multiplied left to right, OPT[i - s] + vol / s, and the first
+    (smallest s) of equal minima."""
+    n = len(xs)
+    if n <= smax:
+        return np.asarray([0, n], dtype=np.int64)
+    dev = resolve_device(device)
+    d = xs.shape[1]
+    kmax = int(np.floor(np.log2(smax)))
+    # sparse table, level k at rows [k*n, (k+1)*n): min/max over
+    # xs[i : i + 2^k] (rows past n - 2^k are never read)
+    x = torch.from_numpy(np.ascontiguousarray(xs, dtype=np.int64)).to(dev)
+    tlo = torch.zeros(((kmax + 1) * n, d), dtype=torch.int64, device=dev)
+    thi = torch.zeros_like(tlo)
+    tlo[:n] = x
+    thi[:n] = x
+    for k in range(1, kmax + 1):
+        h, m = 1 << (k - 1), n - (1 << k) + 1
+        prev, cur = (k - 1) * n, k * n
+        torch.minimum(tlo[prev:prev + m], tlo[prev + h:prev + h + m],
+                      out=tlo[cur:cur + m])
+        torch.maximum(thi[prev:prev + m], thi[prev + h:prev + h + m],
+                      out=thi[cur:cur + m])
+    del x
+    s_np = np.arange(smin, smax + 1)
+    k_np = np.floor(np.log2(s_np)).astype(np.int64)
+    s = torch.from_numpy(s_np).to(dev)
+    s_f = s.to(torch.float64)
+    # flat table rows of the window [i - s, i) for position i: base + i
+    base_l = torch.from_numpy(k_np * n - s_np).to(dev)
+    base_r = torch.from_numpy(k_np * n - (1 << k_np)).to(dev)
+    # OPT shifted by smax, so that OPT[i - s] is read at i + (smax - s) >= 0
+    opt = torch.full((smax + n + 1,), float("inf"), dtype=torch.float64,
+                     device=dev)
+    opt[smax] = 0.0
+    opt[smax + 1:smax + smin] = torch.from_numpy(_prefix_opt(xs, smin, K))
+    base_o = smax - s
+    choice = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    scale = float(2**K)
+    steps = torch.arange(smin, device=dev)
+    for i0 in range(smin, n + 1, smin):
+        B = min(smin, n + 1 - i0)
+        i = (steps[:B] + i0)[:, None]                       # (B, 1)
+        a, b = base_l + i, base_r + i                        # (B, S)
+        ext = (torch.maximum(thi[a], thi[b]) - torch.minimum(tlo[a], tlo[b])
+               + 1).to(torch.float64) / scale                # (B, S, d)
+        vol = ext[..., 0]
+        for j in range(1, d):
+            vol = vol * ext[..., j]
+        cand = opt[base_o + i] + vol / s_f
+        cand = torch.where(s <= i, cand, float("inf"))
+        best = torch.argmin(cand, dim=1)
+        opt[smax + i0:smax + i0 + B] = cand.gather(1, best[:, None])[:, 0]
+        choice[i0:i0 + B] = s[best]
+    choice = choice.cpu().numpy()
+    choice[1:smin] = np.arange(1, min(smin, n + 1))
+    bounds = [n]
+    i = n
+    while i > 0:
+        i -= int(choice[i])
+        bounds.append(i)
+    return np.asarray(bounds[::-1], dtype=np.int64)
+
+
 # ---------------------------------------------------------------------------
 # container
 # ---------------------------------------------------------------------------
@@ -191,7 +277,11 @@ class Paging:
 
 def make_paging(xs_sorted: np.ndarray, method: str, K: int,
                 page_bytes: int = 8192, fill_factor: float = 0.25,
-                alpha: float = 1.5) -> Paging:
+                alpha: float = 1.5, device=None) -> Paging:
+    """Page `xs_sorted` by `method`.  ``"dp"`` above 200k rows runs
+    `dp_paging_torch` on `device` (CUDA unless the caller passes
+    ``device="cpu"``); every other case stays on the host and never
+    resolves a device."""
     d = xs_sorted.shape[1]
     smin, smax = page_capacity(d, page_bytes, fill_factor)
     n = len(xs_sorted)
@@ -200,10 +290,10 @@ def make_paging(xs_sorted: np.ndarray, method: str, K: int,
     elif method == "heuristic":
         starts = heuristic_paging(xs_sorted, smin, smax, K, alpha)
     elif method == "dp":
-        if n > 200_000:
-            raise NotImplementedError(
-                "dp paging above 200k rows: see ROADMAP")
-        starts = dp_paging_np(xs_sorted, smin, smax, K)
+        if n <= 200_000:
+            starts = dp_paging_np(xs_sorted, smin, smax, K)
+        else:
+            starts = dp_paging_torch(xs_sorted, smin, smax, K, device=device)
     else:
         raise ValueError(method)
     return Paging(starts=starts, mbrs=compute_mbrs(xs_sorted, starts), method=method)

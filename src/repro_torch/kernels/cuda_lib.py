@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 import torch
@@ -52,6 +53,8 @@ _SIGNATURES = {
 }
 
 _lib = None
+_lib_lock = threading.Lock()   # one build and bind a process, whichever
+                               # thread (a serving drain thread) comes first
 
 
 def reset_launches() -> None:
@@ -121,15 +124,18 @@ def build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call, under a lock, so
+    that threads launching at once build and bind it once)."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-        _lib = lib
+        with _lib_lock:
+            if _lib is None:
+                lib = ctypes.CDLL(str(build()))
+                for name, argtypes in _SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = list(argtypes)
+                    fn.restype = ctypes.c_int
+                _lib = lib
     return _lib
 
 

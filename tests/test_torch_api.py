@@ -15,8 +15,9 @@ fallbacks, epochs, `QueryPlan.describe()` (engine names mapped), the plan's
 accounting and `CacheStats`.  The reference test's own checks (brute
 force, capacity growth, epochs) run on the port's side.  The `cuda`
 engine refuses a CPU device and is driven on a card by
-`tests/test_torch_cuda.py`; `distributed`, `store`, `Database.serve` and
-`Database.from_segment` raise, naming ROADMAP.
+`tests/test_torch_cuda.py`; `distributed` raises, naming ROADMAP (the
+store and the serving front have files of their own:
+`tests/test_torch_store.py`, `tests/test_torch_serving.py`).
 """
 import dataclasses
 
@@ -224,31 +225,47 @@ def test_cuda_engine_needs_a_card_and_the_kernels(monkeypatch):
     assert on_host.query(tapi.Count(*wl)).engine == "cpu"
 
 
-def test_engines_and_paths_that_wait_raise_naming_roadmap():
+def test_engines_and_paths_that_wait_raise_naming_roadmap(tmp_path):
+    """The distributed engine and `EngineConfig.mesh` wait for the
+    multi-device slice and raise naming ROADMAP.  The store and the
+    serving front are ported: as in the reference, the `store` engine
+    refuses a Database with no segment, `group_pages`/`cache_bytes` are
+    store knobs the other engines ignore, a missing segment raises
+    `StoreCorruptionError`, and `serve` returns a server."""
+    from repro.store import StoreCorruptionError as RCorrupt
+    from repro_torch import serving
+    from repro_torch.store import StoreCorruptionError
     data, wl, K, _ = _data(n=1500, n_q=4)
     db = tapi.Database.fit(data, wl, K=K, learn=False, device="cpu")
-    for name in ("distributed", "store"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tapi.make_engine(name, db)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            db.engine(name)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tapi.make_engine("distributed", db)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        db.engine("distributed")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         db.query(tapi.Count(*wl), engine="distributed")
+    ref = rapi.Database.fit(data, wl, K=K, learn=False)
+    for api, d in ((rapi, ref), (tapi, db)):
+        with pytest.raises(ValueError, match="on-disk segment"):
+            d.engine("store")
+        assert d.segment is None
+        with pytest.raises(StoreCorruptionError if api is tapi
+                           else RCorrupt, match="MANIFEST"):
+            api.Database.from_segment(str(tmp_path / "segment-dir"))
     for name, port_name in (("xla", "torch"), ("pallas", "cuda")):
         with pytest.raises(KeyError, match=port_name):
             db.engine(name)
-    for field, value in (("mesh", object()), ("group_pages", 64),
-                         ("cache_bytes", 1 << 28)):
-        for name in ("cpu", "torch"):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                db.engine(name, tapi.EngineConfig(**{field: value}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        db.serve()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tapi.Database.from_segment("segment-dir")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        db.segment
-    assert tapi.engine_names() == ["cpu", "cuda", "torch"]
+    for name in ("cpu", "torch"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            db.engine(name, tapi.EngineConfig(mesh=object()))
+        db.engine(name, tapi.EngineConfig(group_pages=64, cache_bytes=1 << 28))
+        res = db.query(tapi.Count(*wl))
+        assert res.engine == name and res.exact
+    with db.serve(engine="cpu") as srv:
+        assert isinstance(srv, serving.AsyncServer)
+        np.testing.assert_array_equal(
+            srv.submit(tapi.Count(*wl)).result(timeout=30).counts,
+            db.query(tapi.Count(*wl), engine="cpu").counts)
+    assert tapi.engine_names() == ["cpu", "cuda", "store", "torch"]
 
 
 # ---------------------------------------------------------------------------

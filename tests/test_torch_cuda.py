@@ -467,3 +467,151 @@ def test_database_serves_through_the_cuda_engine(cuda_device):
     res = fresh.query(queries[0])
     assert res.engine == "cuda"
     np.testing.assert_array_equal(res.counts, got[0].counts)
+
+
+def _same_fields(got, want):
+    for f in ("counts", "rows", "offsets", "found", "neighbors", "dists",
+              "overflowed", "residual_overflow"):
+        if hasattr(want, f):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
+                                          err_msg=f)
+
+
+def test_store_engine_serves_through_the_cuda_kernels(cuda_device,
+                                                      tmp_path):
+    """`Database.from_segment(...).engine("store")` on the card: the
+    default backend is the kernels, every kind launches them, and every
+    output equals the `store` engine on the plain twins on the same card
+    and the memmap-backed `cpu` engine — cold, warm, and at a budget
+    small enough to force evictions and bypass, with resident bytes never
+    above the budget."""
+    from repro_torch import api
+    from repro_torch.data.synth import iter_chunks
+    from repro_torch.store import build_segment
+
+    path = str(tmp_path / "seg")
+    build_segment(iter_chunks(60_000, 7_000, seed=5, d=2), path,
+                  page_rows=128)
+    db = api.Database.from_segment(path)
+    rows = np.asarray(db.segment.xs[::997])
+    Ls, Us = make_workload(np.asarray(db.segment.xs), 64, seed=6,
+                           width_scale=0.02, K=db.index.K)
+    queries = [api.Count(Ls, Us), api.Range(Ls, Us),
+               api.Point(np.concatenate([rows, rows ^ np.uint64(1)])),
+               api.Knn(rows[:6], k=5), api.Knn(rows[6:9], k=4,
+                                                metric="linf")]
+    seg = db.segment
+    block = seg.group_nbytes(16)
+    want = {e: [db.query(q, engine=e) for q in queries]
+            for e in ("cpu",)}
+    db.engine("store", api.EngineConfig(q_chunk=8, group_pages=16,
+                                        backend="torch"))
+    before = dict(cuda_lib.LAUNCHES)
+    want["torch"] = [db.query(q) for q in queries]
+    assert cuda_lib.LAUNCHES == before      # the twins launch nothing
+    for budget in (256 << 20, 3 * block):
+        db.engine("store", api.EngineConfig(q_chunk=8, group_pages=16,
+                                            cache_bytes=budget))
+        eng = db.engines["store"]
+        assert eng.backend == "cuda" and eng.device.type == "cuda"
+        for _ in ("cold", "warm"):
+            cuda_lib.reset_launches()
+            got = [db.query(q) for q in queries]
+            for name in ("window_filter", "window_match", "sfc_encode"):
+                assert cuda_lib.LAUNCHES[name] > 0, name
+            for g in got:
+                assert g.engine == "store" and g.cpu_fallbacks == 0
+            for ref in want.values():
+                for g, w in zip(got, ref):
+                    _same_fields(g, w)
+            assert eng.cache.resident_bytes <= budget
+        st = eng.cache.stats
+        assert st.hits > 0 and st.hits + st.misses == st.lookups
+        if budget < 256 << 20:
+            assert st.evictions > 0 and st.bypass > 0
+
+
+def test_server_on_the_card_equals_serial_replay(cuda_device):
+    """`Database.serve(engine="cuda")`: the drain thread launches the
+    kernels, and every served result equals serial replay on the `cuda`
+    engine and on the `torch` engine of the same card."""
+    from repro_torch import api, serving
+
+    data = make_dataset("osm", 30_000, seed=7)
+    db = api.Database.fit(data, K=32, learn=False,
+                          cfg=IndexConfig(page_bytes=2048))
+    db.engine("torch", api.EngineConfig(q_chunk=8))
+    db.engine("cuda", api.EngineConfig(q_chunk=8))
+    spec = serving.LoadSpec(rate_qps=400.0, duration_s=0.5, n_clients=20,
+                            knn_k=4, seed=8)
+    log = serving.make_query_log(data, spec, K=32)
+    cuda_lib.reset_launches()
+    srv = db.serve(slo=serving.SLOConfig(window_init_ms=2.0), engine="cuda")
+    try:
+        point = serving.run_open_loop(srv, log)
+    finally:
+        srv.close(timeout=60)
+    assert not srv._thread.is_alive()
+    for name in ("window_filter", "window_match", "sfc_encode"):
+        assert cuda_lib.LAUNCHES[name] > 0, name
+    assert point["completed"] == point["admitted"] and point["failed"] == 0
+    for engine in ("cuda", "torch"):
+        oracle = serving.replay_serial(db, srv.query_log(), engine=engine)
+        for seq, res in point["results"].items():
+            serving.assert_bit_identical(res, oracle[seq], f"seq{seq}")
+
+
+def test_kernel_library_binds_once_when_two_threads_launch_first(
+        cuda_device):
+    """In a process that has not loaded the kernel library yet, two
+    servers' drain threads launch at once: the library is loaded and
+    bound once, and both serve results equal to the `torch` engine's."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = r'''
+import ctypes, threading
+import numpy as np
+from repro_torch import api, serving
+from repro_torch.core.index import IndexConfig
+from repro_torch.data.synth import make_dataset
+from repro_torch.data.workload import make_workload
+from repro_torch.kernels import cuda_lib
+
+cuda_lib.build()                       # the build itself is not the race
+loads = []
+real = ctypes.CDLL
+def counting(name, *a, **kw):
+    if "librepro_torch" in str(name):
+        loads.append(threading.current_thread().name)
+    return real(name, *a, **kw)
+cuda_lib.ctypes.CDLL = counting
+data = make_dataset("osm", 20_000, seed=9)
+Ls, Us = make_workload(data, 32, seed=10, width_scale=0.03, K=32)
+dbs = [api.Database.fit(data, K=32, learn=False,
+                        cfg=IndexConfig(page_bytes=2048)) for _ in range(2)]
+for db in dbs:
+    db.engine("cuda", api.EngineConfig(q_chunk=8))
+    db.engines["cuda"].sync()          # pack and upload before the race
+    db.engine("torch", api.EngineConfig(q_chunk=8))
+assert cuda_lib._lib is None
+srvs = [db.serve(engine="cuda") for db in dbs]
+tickets = [[s.submit(api.Count(Ls[i:i + 1], Us[i:i + 1])) for i in range(32)]
+           for s in srvs]
+for s in srvs:
+    s.close(timeout=120)
+assert len(loads) == 1, loads
+for db, ts in zip(dbs, tickets):
+    want = db.query(api.Count(Ls, Us), engine="torch").counts
+    got = np.concatenate([t.result(timeout=60).counts for t in ts])
+    assert np.array_equal(got, want)
+print("OK", loads)
+'''
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                          capture_output=True, text=True, timeout=600,
+                          env={**__import__("os").environ,
+                               "PYTHONPATH": str(root / "src")})
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "OK" in proc.stdout

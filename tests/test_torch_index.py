@@ -4,6 +4,7 @@ copies are numpy code like the reference's, so integer and float outputs
 alike must be equal (tolerance 0)."""
 import numpy as np
 import pytest
+import torch
 
 from repro.core import curve as rc
 from repro.core import index as ri
@@ -105,10 +106,21 @@ def test_paging_pgm_sortdim_helpers_match_reference():
         rsd.default_sort_dim(Ls, Us, 2**16)
 
 
-def test_dp_paging_above_200k_rows_is_not_ported_yet():
+def test_dp_paging_above_200k_rows_is_not_ported_yet(monkeypatch):
+    """Above 200k rows dp paging runs on a device (`dp_paging_torch`, held
+    against `dp_paging_np` in tests/test_torch_paging.py): without a card
+    and without ``device="cpu"`` it raises instead of falling back."""
     xs = np.zeros((200_001, 2), dtype=np.int64)
-    with pytest.raises(NotImplementedError, match="200k"):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         tp.make_paging(xs, "dp", 16)
+    threads = torch.get_num_threads()   # few threads: see test_torch_paging
+    torch.set_num_threads(2)
+    try:
+        pg = tp.make_paging(xs, "dp", 16, device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    assert pg.starts[0] == 0 and pg.starts[-1] == len(xs)
 
 
 @pytest.mark.parametrize("family", ["global", "piecewise"])
