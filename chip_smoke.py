@@ -71,7 +71,33 @@ no result.  Phases, each printing one JSON line:
    shed counts and the controller's window; every served result equals
    `replay_serial` of the served log on the `cuda` and on the `torch`
    engine, bit for bit;
-10. kernels_flash: the two flash attention kernels against their plain
+10. distributed: the database phase's index (after its updates) through
+   the page-sharded `distributed` engine on a mesh of every visible card
+   and on four shards of the first card: its Count batches and Point
+   batch through the kernels on every shard, bit for bit against the
+   `cuda` engine (counts, found flags, a one-shard mesh's overflow
+   flags); forced escalation (max_cand 4), where each query's overflow
+   count must equal the number of shards that overflowed; 1,000 inserts
+   and 100 deletes served after a refresh that copies only the dirty
+   pages into their shards; q/s beside the `cuda` engine's and a
+   profiled batch.  One card runs its shards one after another: no peer
+   copy and no collective runs;
+11. router: `Router.build` of the 10M rows into 4 shard Databases on the
+   card (each fitted as the database phase's fit is), the earlier
+   phases' inserts and deletes applied through it, every shard on the
+   `cuda` engine: the database phase's Count, Range, Point and kNN
+   traffic bit for bit against the unsharded database's `cuda` engine,
+   samples against brute force; `Router.serve` under the serving load at
+   250 offered q/s, every served result equal to `replay_serial` on the
+   Router; q/s per kind and the per-shard plan accounting;
+12. pipeline: `synth_corpus` (250,000 docs, vocab 32,000, up to 512
+   tokens) in an `IndexedDataset` on the card with `verify_selects`: 64
+   seeded curriculum windows selected through a Range on the `cuda`
+   engine (`window_match`), each equal to the full metadata mask; a
+   `TokenBatcher` of 2 phases x 16 steps of (8, 512) batches resumed
+   mid-stream; the same selections through a segment of the unique
+   metadata rows on the `store` engine;
+13. kernels_flash: the two flash attention kernels against their plain
    twin `mha_ref` on the card (atol = rtol = 2e-5 for the float32 scalar
    kernel, 2e-2 for the bf16 tensor-core kernel, which is also held
    against `flash_tc_ref` at 1e-2: that twin rounds where the kernel
@@ -80,21 +106,23 @@ no result.  Phases, each printing one JSON line:
    `scaled_dot_product_attention` as a yardstick, at the LM path's shape
    (also as the model's (B, S, H, dh)-strided views) and the reference
    tests' shapes;
-11. lm_serve: qwen3-4b at its published widths and full depth (36 layers)
+14. lm_serve: qwen3-4b at its published widths and full depth (36 layers)
    on seeded random weights serves 4 requests of 2,048 seeded random
    tokens: one prefill through the bf16 flash kernel (exactly one launch
    per layer), the caches stitched into
    a state of 2,048 + 32 slots, 32 greedy decode steps; the prefill is
    held against the plain-torch attention backend on the card;
-12. launch check: every kernel ran on each path, and the window and
-   encode kernels in the store and serving phases too.
+15. launch check: every kernel ran on each path, the window and encode
+   kernels in the store and serving phases too, `window_filter` and
+   `sfc_encode` in the distributed and router phases, `window_match` in
+   the router and pipeline phases.
 
 The line before the last lists the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero without
 that line.  ``--osm-rows``/``--nyc-rows``/``--batches``/``--smbo-iters``/
 ``--lm-layers``/``--decode-steps``/``--dp-prefix``/``--store-rows``/
-``--serve-seconds`` cut the depth for a quick run; the defaults are the
-full run.
+``--serve-seconds``/``--router-shards``/``--pipeline-docs`` cut the depth
+for a quick run; the defaults are the full run.
 """
 from __future__ import annotations
 
@@ -1271,9 +1299,11 @@ def phase_database(data, n_batches: int, seed: int, main_res: dict) -> dict:
         "peak_device_bytes": int(peak),
         "phase_s": time.perf_counter() - t_phase}
     emit(out)
-    # for the later phases, not printed: the database and its traffic
+    # for the later phases, not printed: the database, its traffic and
+    # the rows its updates inserted and deleted
     out["db"] = db
     out["traffic"] = (batches, points, centers)
+    out["updates"] = [(new, dead)]
     return out
 
 
@@ -1365,14 +1395,14 @@ STORE_SMALL_BUDGET = 16 << 20  # forces evictions and bypass (~120 blocks;
                                # a fifth of the groups on a cut segment)
 
 
-def _store_pass(db, traffic, name: str, budget=None):
-    """Serve the database phase's traffic once through the attached
-    engine: per kind the results and the seconds; the cache's resident
-    bytes are read after every query and must stay within `budget`."""
+def _traffic_pass(db, traffic, name: str, budget=None):
+    """Serve the database phase's traffic once through `db.query` (a
+    Database on its attached engine, or a Router): per kind the results
+    and the seconds; with a `budget`, the store cache's resident bytes are
+    read after every query and must stay within it."""
     from repro_torch import api
     import torch
     batches, points, centers = traffic
-    eng = db.engines[db.active_engine]
     out, secs = {}, {}
     worst = 0
 
@@ -1380,6 +1410,7 @@ def _store_pass(db, traffic, name: str, budget=None):
         nonlocal worst
         r = db.query(q)
         if budget is not None:
+            eng = db.engines[db.active_engine]
             worst = max(worst, eng.cache.resident_bytes)
             check(eng.cache.resident_bytes <= budget,
                   f"store: {name}: {eng.cache.resident_bytes} resident "
@@ -1489,7 +1520,7 @@ def phase_store(data, curve, traffic, seed: int) -> dict:
         for run in ("cold", "warm"):
             if run == "warm":
                 eng._resolve_rows = timed_resolve
-            got[run], secs[run], qps[run], _ = _store_pass(
+            got[run], secs[run], qps[run], _ = _traffic_pass(
                 db, traffic, run, DEFAULT_CACHE_BYTES)
             cache[run] = dataclasses.asdict(eng.cache.stats.snapshot())
         eng._resolve_rows = resolve
@@ -1506,7 +1537,7 @@ def phase_store(data, curve, traffic, seed: int) -> dict:
                                             **knobs))
         small = db.engines["store"]
         obs.enable()
-        got["small"], secs["small"], qps["small"], worst = _store_pass(
+        got["small"], secs["small"], qps["small"], worst = _traffic_pass(
             db, traffic, "small budget", small_budget)
         spans = _span_totals(obs.snapshot(), (
             "store.assemble", "store.cache.upload", "executor.device_call",
@@ -1530,7 +1561,7 @@ def phase_store(data, curve, traffic, seed: int) -> dict:
         # in-memory kernels' engine over the segment's index
         db.engine("store", api.EngineConfig(backend="torch", **knobs))
         before = dict(cuda_lib.LAUNCHES)
-        twin, twin_s, twin_qps, _ = _store_pass(db, traffic, "torch",
+        twin, twin_s, twin_qps, _ = _traffic_pass(db, traffic, "torch",
                                                 DEFAULT_CACHE_BYTES)
         check(cuda_lib.LAUNCHES == before,
               "store: the torch backend launched a kernel")
@@ -1539,7 +1570,7 @@ def phase_store(data, curve, traffic, seed: int) -> dict:
         t0 = time.perf_counter()
         mem.engines[KERNEL_ENGINE].sync()      # pack + upload, not timed
         mem_pack_s = time.perf_counter() - t0
-        inmem, inmem_s, inmem_qps, _ = _store_pass(mem, traffic, "in memory")
+        inmem, inmem_s, inmem_qps, _ = _traffic_pass(mem, traffic, "in memory")
         for run in ("cold", "warm", "small"):
             _same_answers(f"{run} against the torch backend", got[run], twin,
                           plain=True)
@@ -1725,7 +1756,504 @@ def phase_serving(db, data, seconds: float, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 10: flash attention against its plain twin
+# phase 10: the page-sharded `distributed` engine
+# ---------------------------------------------------------------------------
+
+DIST_FORCED_CAND = 4           # forced escalation: most queries overflow
+DIST_UPDATES = (1_000, 100)    # rows inserted / deleted in the phase
+
+
+def _launch_delta(before: dict) -> dict:
+    from repro_torch.kernels import cuda_lib
+    return {k: v - before[k] for k, v in cuda_lib.LAUNCHES.items()}
+
+
+def _add(total: dict, delta: dict) -> None:
+    for k, v in delta.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _shard_overflow(eng, curve, rects, max_cand: int):
+    """The number of shards whose candidate pages overflow `max_cand`, per
+    query: the engine's packed host arrays cut here with numpy into
+    `len(mesh)` contiguous equal page blocks (not by `shard_serving_arrays`,
+    the split under test), each block served by the single-shard
+    `make_query_fn` on the plain backend.  What the distributed fn's
+    summed overflow must equal."""
+    import torch
+    from repro_torch.core.serve import make_query_fn, upload_serving_arrays
+    fn = make_query_fn(curve, k_maxsplit=K_MAXSPLIT, max_cand=max_cand,
+                       q_chunk=Q_CHUNK, backend="torch")
+    n = len(eng.mesh)
+    pages = eng._host.points.shape[0]
+    check(pages % n == 0, f"distributed: {pages} pages do not split into "
+          f"{n} equal shards")
+    per = pages // n
+    total = None
+    for i, dev in enumerate(eng.mesh):
+        block = eng._host.map(lambda a: a[i * per:(i + 1) * per])
+        _, over = fn(upload_serving_arrays(block, dev), rects.to(dev))
+        over = over.to(torch.int64).cpu()
+        total = over if total is None else total + over
+    return total.numpy()
+
+
+def phase_distributed(db, traffic, seed: int) -> dict:
+    """The `distributed` engine (`Database.engine("distributed")`) on the
+    database phase's index after its updates: a mesh of every visible card
+    and a mesh of four shards on the first card (pages padded to a
+    multiple of 4).  Each serves the database phase's 4 Count batches and
+    its Point batch through the kernels on every shard, held bit for bit
+    against the `cuda` engine on the same rows (counts, found flags, and
+    on a one-shard mesh the overflow flags); under forced escalation
+    (max_cand 4) the first pass's overflow count of each query must equal
+    the number of shards that overflowed (each shard's plain single-shard
+    twin) and the escalated counts the `cuda` engine's; then 1,000
+    inserts and 100 deletes are served after a refresh that copies only
+    the dirty pages into the shards holding them.  Launches are counted
+    over the distributed engine's calls only."""
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.core.serve import pack_query_rects
+    from repro_torch.kernels import cuda_lib
+
+    batches, points, _ = traffic
+    knobs = dict(q_chunk=Q_CHUNK, max_cand=MAX_CAND, cap=DB_CAP)
+    rng = np.random.default_rng(seed + 21)
+    launches = {k: 0 for k in cuda_lib.LAUNCHES}
+    meshes = {"all_cards": None, "four_shards_card0": [f"{DEVICE}:0"] * 4}
+    Q = sum(len(b[0]) for b in batches)
+    updates = []
+    out = {"phase": "distributed", "card": CARD, "rows": int(db.n),
+           "pages": int(db.num_pages), "meshes": {}}
+
+    def dist(q):
+        """One query on the distributed engine; its launches tallied."""
+        before = dict(cuda_lib.LAUNCHES)
+        r = db.query(q, engine="distributed")
+        torch.cuda.synchronize()
+        _add(launches, _launch_delta(before))
+        return r
+
+    def plain(q):
+        return db.query(q, engine=KERNEL_ENGINE)
+
+    def hold(name, got, want, flags: bool):
+        for f in ("counts", "found") + (("overflowed",) if flags else ()):
+            if hasattr(want, f):
+                check(np.array_equal(getattr(got, f), getattr(want, f)),
+                      f"distributed: {name}: {f} differs from the "
+                      f"{KERNEL_ENGINE} engine")
+        check(got.engine == "distributed" and got.exact
+              and got.cpu_fallbacks == 0,
+              f"distributed: {name}: not served whole by the engine")
+
+    for label, mesh in meshes.items():
+        db.engine("distributed", api.EngineConfig(mesh=mesh, **knobs))
+        eng = db.engines["distributed"]
+        check(eng.backend == "cuda" and all(d.type == "cuda"
+                                            for d in eng.mesh),
+              "distributed: the engine is not on the kernels of the cards")
+        t0 = time.perf_counter()
+        dist(api.Count(*batches[0]))             # first use: pack, upload
+        pack_s = time.perf_counter() - t0
+        one = len(eng.mesh) == 1
+        t0 = time.perf_counter()
+        got = [dist(api.Count(*b)) for b in batches]
+        count_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got_pt = dist(api.Point(points))
+        point_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = [plain(api.Count(*b)) for b in batches]
+        torch.cuda.synchronize()
+        cuda_count_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want_pt = plain(api.Point(points))
+        cuda_point_s = time.perf_counter() - t0
+        for i, (g, w) in enumerate(zip(got, want)):
+            hold(f"{label} count {i}", g, w, one)
+        hold(f"{label} point", got_pt, want_pt, one)
+        # forced escalation: first-pass overflow == shards that overflowed
+        db.engine("distributed", api.EngineConfig(
+            mesh=mesh, q_chunk=Q_CHUNK, max_cand=DIST_FORCED_CAND,
+            cap=DB_CAP))
+        forced = dist(api.Count(*batches[0]))
+        eng = db.engines["distributed"]
+        rects = torch.from_numpy(pack_query_rects(*batches[0]))
+        expect = _shard_overflow(eng, db.curve, rects, DIST_FORCED_CAND)
+        check(np.array_equal(forced.overflowed, expect[:len(forced)]),
+              f"distributed: {label}: forced overflow counts differ from "
+              f"the shards' own")
+        check(forced.escalations > 0,
+              f"distributed: {label}: forced max_cand did not escalate")
+        hold(f"{label} forced", forced, want[0], False)
+        # updates: a refresh copies only the dirty pages into their shards
+        db.engine("distributed", api.EngineConfig(mesh=mesh, **knobs))
+        eng = db.engines["distributed"]
+        dist(api.Count(*batches[-1]))
+        parts0 = eng._arrays.points.parts
+        # rows near stored ones that are not stored, and live base rows
+        # (the `cuda` engine's Point answers which; merging the whole
+        # live set on the host would take ~15 s)
+        xs = db.index.xs
+        near = xs[rng.choice(len(xs), DIST_UPDATES[0],
+                             replace=False)].astype(np.int64)
+        near += rng.integers(-64, 65, size=near.shape)
+        new = np.unique(np.clip(near, 0, 2**32 - 1).astype(np.uint64),
+                        axis=0)
+        new = new[~plain(api.Point(new)).found]
+        dead = xs[rng.choice(len(xs), 2 * DIST_UPDATES[1], replace=False)]
+        dead = dead[plain(api.Point(dead)).found][:DIST_UPDATES[1]]
+        db.insert(new)
+        check(db.delete(dead) == len(dead), "distributed: deletes missed")
+        updates.append((new, dead))
+        dirty = len(db.store.dirty_since(eng.built_epoch))
+        probe = api.Point(np.concatenate([new[:64], dead[:64]]))
+        t0 = time.perf_counter()
+        upd = dist(api.Count(*batches[-1]))
+        refresh_s = time.perf_counter() - t0
+        upd_pt = dist(probe)
+        check(eng.built_epoch == db.store.epoch
+              and all(a is b for a, b in zip(eng._arrays.points.parts,
+                                             parts0)),
+              f"distributed: {label}: the refresh re-uploaded the shards")
+        n_new = min(64, len(new))
+        check(bool(upd_pt.found[:n_new].all())
+              and not upd_pt.found[n_new:].any(),
+              f"distributed: {label}: inserts/deletes not visible")
+        hold(f"{label} after updates", upd, plain(api.Count(*batches[-1])),
+             one)
+        hold(f"{label} point after updates", upd_pt, plain(probe), one)
+        profile = profile_batch(lambda: dist(api.Count(*batches[0])))
+        out["meshes"][label] = {
+            "shards": len(eng.mesh),
+            "devices": sorted({str(d) for d in eng.mesh}),
+            "pages_padded": int(eng._host.points.shape[0]),
+            "pack_upload_s": pack_s,
+            "count_qps": Q / count_s, "cuda_count_qps": Q / cuda_count_s,
+            "point_qps": len(points) / point_s,
+            "cuda_point_qps": len(points) / cuda_point_s,
+            "first_pass_overflowed": int(sum((r.overflowed > 0).sum()
+                                             for r in got)),
+            "forced": {"max_cand": DIST_FORCED_CAND,
+                       "escalations": forced.escalations,
+                       "queries_overflowed":
+                           int((forced.overflowed > 0).sum()),
+                       "max_shards_overflowed": int(forced.overflowed.max()),
+                       "device_calls": forced.plan.accounting.device_calls},
+            "updates": {"inserted": int(len(new)), "deleted": len(dead),
+                        "dirty_pages": dirty,
+                        "refresh_query_s": refresh_s},
+            "profile_count_batch": profile}
+    for name in ("window_filter", "sfc_encode"):
+        check(launches[name] > 0, f"distributed: {name} was not launched")
+    out["launches"] = launches
+    out["cards"] = torch.cuda.device_count()
+    emit(out)
+    out["updates"] = updates
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the multi-shard Router
+# ---------------------------------------------------------------------------
+
+
+def phase_router(data, db, traffic, updates, n_shards: int, seconds: float,
+                 seed: int) -> dict:
+    """`Router.build` of the main path's rows into `n_shards` shard
+    Databases on the card, each fitted as the database phase's fit is (the
+    device SMBO program, `sfc_encode_pool` launched), the database and
+    distributed phases' inserts and deletes applied through the Router
+    (round-robin inserts, broadcast deletes), every shard on the `cuda`
+    engine with the main path's knobs.  The database phase's Count, Range,
+    Point and kNN traffic is held bit for bit against the unsharded
+    database on its `cuda` engine (kNN tie-breaks included), samples
+    against brute force; the shards' curves differ from the unsharded
+    one, and the answers do not depend on the curve.  `Router.serve`
+    then serves the serving phase's load at 250 offered q/s for `seconds`
+    and every served result must equal `replay_serial` on the Router.
+    Launches are counted over the build, the traffic and the served run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.core.query import brute_force_count, brute_force_range
+    from repro_torch.data.workload import make_workload
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.serving import (LoadSpec, SLOConfig, assert_bit_identical,
+                                     make_query_log, replay_serial,
+                                     run_open_loop)
+
+    batches, points, centers = traffic
+    launches = {k: 0 for k in cuda_lib.LAUNCHES}
+    torch.cuda.synchronize()
+    before = dict(cuda_lib.LAUNCHES)
+    Ls_tr, Us_tr = make_workload(data, 100, seed=seed + 7, width_scale=0.01,
+                                 K=32)
+    t0 = time.perf_counter()
+    router = api.Router.build(data, n_shards, workload=(Ls_tr, Us_tr), K=32,
+                              sample=10_000, smbo={"evals_per_iter": 4},
+                              seed=seed, device=DEVICE)
+    build_s = time.perf_counter() - t0
+    build_launches = _launch_delta(before)
+    _add(launches, build_launches)
+    check(build_launches["sfc_encode_pool"] > 0,
+          "router: the shards' fits launched no sfc_encode_pool")
+    t0 = time.perf_counter()
+    for new, dead in updates:
+        router.insert(new)
+        check(router.delete(dead) == len(dead), "router: deletes missed")
+    update_s = time.perf_counter() - t0
+    check(router.n == db.n, f"router: {router.n} live rows, the unsharded "
+                            f"database {db.n}")
+    knobs = dict(q_chunk=Q_CHUNK, max_cand=MAX_CAND, max_hits=MAX_HITS,
+                 cap=DB_CAP)
+    router.engine(KERNEL_ENGINE, api.EngineConfig(**knobs))
+    for s in router.shards:
+        check(s.engines[KERNEL_ENGINE].device.type == "cuda",
+              "router: a shard is not on the card")
+    before = dict(cuda_lib.LAUNCHES)
+    # first use of each kind (pack, upload, the fns of its shapes) is not
+    # timed, on the Router as on the unsharded database
+    warm = (api.Count(*batches[0]), api.Range(*batches[0]),
+            api.Knn(centers, k=10), api.Knn(centers, k=10, metric="linf"))
+    for q in warm:
+        router.query(q)
+    got, secs, qps, _ = _traffic_pass(router, traffic, "router")
+    profile_knn = profile_batch(lambda: router.query(warm[2]))
+    _add(launches, _launch_delta(before))
+    db.engine(KERNEL_ENGINE, api.EngineConfig(**knobs))
+    for q in warm:
+        db.query(q)
+    want, want_secs, want_qps, _ = _traffic_pass(db, traffic, "unsharded")
+    for kind in got:
+        for i, (g, w) in enumerate(zip(got[kind], want[kind])):
+            residual = getattr(g, "residual_overflow", np.zeros(1))
+            check(g.engine == f"router[{n_shards}x{KERNEL_ENGINE}]"
+                  and g.cpu_fallbacks == 0 and not np.any(residual),
+                  f"router: {kind} {i} was not served whole on the shards")
+            for f in ANSWER_FIELDS:
+                if hasattr(w, f):
+                    check(np.array_equal(getattr(g, f), getattr(w, f)),
+                          f"router: {kind} {i}: {f} differs from the "
+                          f"unsharded database")
+    live = db.store.merged_data()
+    rng = np.random.default_rng(seed + 31)
+    Ls = np.concatenate([b[0] for b in batches])
+    Us = np.concatenate([b[1] for b in batches])
+    counts = np.concatenate([r.counts for r in got["count"]])
+    pick = rng.permutation(len(Ls))
+    for t in pick[:16]:
+        check(counts[t] == brute_force_count(live, Ls[t], Us[t]),
+              f"router: count of query {t} differs from brute force")
+    for t in pick[:4]:
+        rr = got["range"][t // BATCH]
+        check(np.array_equal(rr.rows_for(t % BATCH),
+                             brute_force_range(live, Ls[t], Us[t])),
+              f"router: range rows of query {t} differ from brute force")
+    for m, kr in zip(("l2", "linf"), got["knn"]):
+        for i in range(2):
+            rows, dists = _brute_knn(live, centers[i], 10, m)
+            check(np.array_equal(kr.neighbors_for(i), rows)
+                  and np.array_equal(kr.dists_for(i),
+                                     np.asarray(dists, dtype=np.float64)),
+                  f"router: {m} kNN of center {i} differs from brute force")
+    per_shard = {
+        kind: [{k: v for k, v in dataclasses.asdict(a).items()
+                if k != "per_shard"}
+               for a in got[kind][0].plan.accounting.per_shard]
+        for kind in got}
+    # each timed kNN batch: per shard (device calls, escalations, compiles)
+    knn_batches = [
+        {"metric": r.metric, "escalations": r.escalations,
+         "per_shard": [[a.device_calls, a.escalations, a.compiles]
+                       for a in r.plan.accounting.per_shard]}
+        for r in got["knn"]]
+    # served: the serving phase's load at its first offered rate
+    rate = SERVE_RATES[0]
+    log = make_query_log(data, LoadSpec(rate_qps=rate, duration_s=seconds,
+                                        seed=seed + int(rate),
+                                        **SERVE_LOAD), K=32)
+    before = dict(cuda_lib.LAUNCHES)
+    srv = router.serve(slo=SLOConfig(**SERVE_SLO), engine=KERNEL_ENGINE)
+    try:
+        pt = run_open_loop(srv, log)
+    finally:
+        srv.close(timeout=600)
+    torch.cuda.synchronize()
+    serve_launches = _launch_delta(before)
+    _add(launches, serve_launches)
+    check(not srv._thread.is_alive(), "router: the drain loop hangs")
+    check(pt["failed"] == 0 and pt["completed"] == pt["admitted"],
+          f"router: {pt['failed']} served tickets failed")
+    results = pt.pop("results")
+    t0 = time.perf_counter()
+    for entry in srv.query_log():
+        seq, _ = entry
+        want_r = replay_serial(router, [entry], engine=KERNEL_ENGINE)[seq]
+        assert_bit_identical(results[seq], want_r, context=f"router seq{seq}")
+    replay_s = time.perf_counter() - t0
+    lat = pt["latency_ms"]
+    st = srv.stats()
+    for name in ("window_filter", "window_match", "sfc_encode"):
+        check(launches[name] > 0, f"router: {name} was not launched")
+        check(serve_launches[name] > 0,
+              f"router: the server launched no {name}")
+    out = {"phase": "router", "card": CARD, "shards": n_shards,
+           "rows": int(router.n),
+           "shard_rows": [int(s.n) for s in router.shards],
+           "shard_pages": [int(s.num_pages) for s in router.shards],
+           "build_s": build_s, "update_s": update_s,
+           "shard_costs": [s.fit_result.y_best for s in router.shards],
+           "qps": qps, "unsharded_cuda_qps": want_qps,
+           "knn_s": secs["knn"], "unsharded_knn_s": want_secs["knn"],
+           "knn_batches": knn_batches, "profile_knn_batch": profile_knn,
+           "plan_accounting_per_shard": per_shard,
+           "brute_checked": {"count": 16, "range": 4, "knn": 4},
+           "served": {"offered_qps": rate, "seconds": seconds,
+                      "scheduled": pt["scheduled"],
+                      "admitted": pt["admitted"], "shed": pt["shed"],
+                      "completed": pt["completed"],
+                      "sustained_qps": pt["sustained_qps"],
+                      "p50_ms": lat["p50"], "p95_ms": lat["p95"],
+                      "p99_ms": lat["p99"], "batches": st["batches"],
+                      "replayed": len(results), "replay_s": replay_s},
+           "build_launches": build_launches,
+           "serve_launches": serve_launches, "launches": launches}
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the LM data pipeline's indexed sample selection
+# ---------------------------------------------------------------------------
+
+PIPE_VOCAB = 32_000
+PIPE_MAX_LEN = 512
+PIPE_WINDOWS = 64
+PIPE_BATCH = (8, 512)          # (batch, seq_len) of a TokenBatcher step
+PIPE_STEPS = 16                # steps per curriculum phase
+
+
+def _windows(rng, n: int, d: int = 4) -> list:
+    """Seeded curriculum windows: per metadata dimension a sub-interval of
+    [0, 1] covering a fifth to all of it."""
+    width = rng.uniform(0.2, 1.0, size=(n, d))
+    lo = rng.uniform(0, 1, size=(n, d)) * (1 - width)
+    return [(tuple(a), tuple(a + w)) for a, w in zip(lo, width)]
+
+
+def phase_pipeline(n_docs: int, seed: int) -> dict:
+    """`synth_corpus` (`n_docs` docs, vocab 32,000, up to 512 tokens) in an
+    `IndexedDataset` on the card with ``verify_selects=True``: 64 seeded
+    curriculum windows are selected through a Range on the `cuda` engine
+    (the `window_match` kernel) and each must equal the full metadata
+    mask (`verify_selects` raises on a mismatch); a `TokenBatcher` runs 2
+    phases x 16 steps of (8, 512) batches and resumes from a mid-stream
+    state (the resumed states continue the stream's, and two resumes give
+    the same batches); the unique metadata rows are then written as a
+    segment under `build/` and the same windows are selected through
+    `Database.from_segment(...).engine("store")` on the kernels, equal to
+    the in-memory selections.  Launch counts are set to 0 just before the
+    selections and batches and read just after them."""
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.data.pipeline import (CurriculumPhase, IndexedDataset,
+                                           TokenBatcher, synth_corpus)
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.store import write_segment_from_index
+
+    t0 = time.perf_counter()
+    docs, meta = synth_corpus(n_docs, PIPE_VOCAB, PIPE_MAX_LEN, seed=seed)
+    corpus_s = time.perf_counter() - t0
+    tokens = int(sum(len(x) for x in docs))
+    t0 = time.perf_counter()
+    ds = IndexedDataset(docs, meta, seed=seed, device=DEVICE,
+                        verify_selects=True)
+    index_s = time.perf_counter() - t0
+    check(ds.db.default_engine == KERNEL_ENGINE,
+          f"pipeline: selects would run on {ds.db.default_engine}")
+    windows = _windows(np.random.default_rng(seed + 41), PIPE_WINDOWS)
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    sel = [ds.select(lo, hi) for lo, hi in windows]
+    select_s = time.perf_counter() - t0
+    phases = [CurriculumPhase("broad", (0.0, 0.0, 0.3, 0.0),
+                              (1.0, 1.0, 1.0, 1.0), steps=PIPE_STEPS),
+              CurriculumPhase("narrow", (0.0, 0.25, 0.6, 0.0),
+                              (0.5, 0.75, 1.0, 0.8), steps=PIPE_STEPS)]
+    B, S = PIPE_BATCH
+    t0 = time.perf_counter()
+    stream = list(TokenBatcher(ds, phases, batch=B, seq_len=S, seed=seed))
+    batch_s = time.perf_counter() - t0
+    check(len(stream) == 2 * PIPE_STEPS
+          and all(b["tokens"].shape == (B, S) for b, _ in stream),
+          "pipeline: the batcher did not yield 2 x 16 (8, 512) batches")
+    mid = PIPE_STEPS + PIPE_STEPS // 2 - 1
+    resumed = []
+    for _ in range(2):
+        tb = TokenBatcher(ds, phases, batch=B, seq_len=S, seed=seed)
+        tb.set_state(stream[mid][1])
+        resumed.append(list(tb))
+    check(len(resumed[0]) == len(stream) - mid - 1
+          and [s for _, s in resumed[0]] == [s for _, s in stream[mid + 1:]]
+          and all(np.array_equal(a["tokens"], b["tokens"])
+                  for (a, _), (b, _) in zip(*resumed)),
+          "pipeline: resuming mid-stream did not continue the stream")
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.LAUNCHES)
+    check(launches["window_match"] > 0,
+          "pipeline: the selects launched no window_match")
+    # the same dataset served from a segment through the store engine
+    path = ROOT / "build" / "pipeline_segment"
+    shutil.rmtree(path, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        write_segment_from_index(ds.index, str(path))
+        seg = api.Database.from_segment(str(path), device=DEVICE)
+        seg.engine("store", api.EngineConfig())
+        sds = IndexedDataset(docs, meta, seed=seed, database=seg,
+                             verify_selects=True)
+        seg_setup_s = time.perf_counter() - t0
+        before = dict(cuda_lib.LAUNCHES)
+        t0 = time.perf_counter()
+        for (lo, hi), ids in zip(windows, sel):
+            check(np.array_equal(sds.select(lo, hi), ids),
+                  "pipeline: the segment's selection differs")
+        seg_select_s = time.perf_counter() - t0
+        seg_launches = _launch_delta(before)
+        check(seg_launches["window_match"] > 0,
+              "pipeline: the store engine launched no window_match")
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    rows = [len(x) for x in sel]
+    out = {"phase": "pipeline", "card": CARD, "docs": n_docs,
+           "tokens": tokens, "token_bytes": 4 * tokens,
+           "unique_meta_rows": int(ds.index.n),
+           "pages": int(ds.index.num_pages), "K": ds.K,
+           "corpus_s": corpus_s, "index_s": index_s,
+           "selects": len(windows), "selects_per_s": len(windows) / select_s,
+           "ids_per_select": {"min": min(rows), "mean": sum(rows) / len(rows),
+                              "max": max(rows)},
+           "batches": len(stream), "batch": list(PIPE_BATCH),
+           "batches_per_s": len(stream) / batch_s,
+           "resumed_at": mid + 1, "resumed_batches": len(resumed[0]),
+           "segment": {"setup_s": seg_setup_s,
+                       "selects_per_s": len(windows) / seg_select_s,
+                       "launches": seg_launches},
+           "launches": launches}
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 13: flash attention against its plain twin
 # ---------------------------------------------------------------------------
 
 LM_ARCH = "qwen3-4b"
@@ -1872,7 +2400,7 @@ def phase_kernels_flash(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 11: qwen3-4b prefill + decode serving on the card
+# phase 14: qwen3-4b prefill + decode serving on the card
 # ---------------------------------------------------------------------------
 
 
@@ -2036,6 +2564,10 @@ def main(argv=None) -> int:
                          "--osm-rows)")
     ap.add_argument("--serve-seconds", type=float, default=2.0,
                     help="seconds of offered load at each serving rate")
+    ap.add_argument("--router-shards", type=int, default=4,
+                    help="shard Databases of the router phase")
+    ap.add_argument("--pipeline-docs", type=int, default=250_000,
+                    help="documents of the pipeline phase's corpus")
     args = ap.parse_args(argv)
 
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -2074,11 +2606,17 @@ def main(argv=None) -> int:
     pw_res = phase_piecewise(nyc, args.batches, pw_curve)
     db_res = phase_database(osm, args.batches, args.seed, main_res)
     phase_dp_paging(nyc, pw_curve, args.dp_prefix)
-    store_res = phase_store(osm[:args.store_rows], main_curve,
-                            db_res.pop("traffic"), args.seed)
-    serving_res = phase_serving(db_res.pop("db"), osm, args.serve_seconds,
-                                args.seed)
-    del osm, nyc
+    db, traffic = db_res.pop("db"), db_res.pop("traffic")
+    store_res = phase_store(osm[:args.store_rows], main_curve, traffic,
+                            args.seed)
+    serving_res = phase_serving(db, osm, args.serve_seconds, args.seed)
+    dist_res = phase_distributed(db, traffic, args.seed)
+    router_res = phase_router(osm, db, traffic,
+                              db_res.pop("updates") + dist_res.pop("updates"),
+                              args.router_shards, args.serve_seconds,
+                              args.seed)
+    del osm, nyc, db, traffic
+    pipeline_res = phase_pipeline(args.pipeline_docs, args.seed)
     flash = phase_kernels_flash(args.seed)
     lm = phase_lm_serve(args.seed, args.lm_layers, args.decode_steps)
 
@@ -2114,9 +2652,21 @@ def main(argv=None) -> int:
         row["database_launches"] = db_res["launches"][name]
         row["store_launches"] = store_res["launches"][name]
         row["serving_launches"] = serving_res["launches"][name]
+        row["distributed_launches"] = dist_res["launches"][name]
+        row["router_launches"] = router_res["launches"][name]
+        row["pipeline_launches"] = pipeline_res["launches"][name]
         if name in ("window_filter", "window_match", "sfc_encode"):
             check(row["store_launches"] > 0 and row["serving_launches"] > 0,
                   f"{name} was not launched by the store or the server")
+        if name in ("window_filter", "sfc_encode"):
+            check(row["distributed_launches"] > 0
+                  and row["router_launches"] > 0,
+                  f"{name} was not launched by the distributed engine or "
+                  f"the router")
+        if name == "window_match":
+            check(row["router_launches"] > 0
+                  and row["pipeline_launches"] > 0,
+                  f"{name} was not launched by the router or the pipeline")
         if off_path:
             row["held_launches"] = flash["held_launches"][name]
         rows.append(row)

@@ -21,12 +21,13 @@ engine.
            reference's 'pallas').  Its device must be a CUDA device: it
            raises at attach otherwise, and never serves through the twins.
 
+  distributed — the batched engine page-sharded over a mesh (a sequence
+           of devices, one shard each, driven by one process); counts and
+           overflow summed over the shards.  Backend 'cuda' (the kernels,
+           the default on an all-CUDA mesh) raises on a mesh that holds a
+           CPU device; 'torch' runs the twins.
   store  — segment-backed out-of-core serving through cached device page
            groups (`repro_torch.store.engine`; registered on first use).
-
-The reference's 'distributed' engine waits for the multi-device slice
-(ROADMAP Queue 1 item 7); `make_engine` raises `NotImplementedError` for
-it.
 
 Device engines keep a host-side copy of their `ServingArrays` plus the
 DeltaStore epoch they were packed at; `sync()` re-packs only the pages
@@ -44,24 +45,17 @@ import torch
 from .. import obs
 from ..core.device import resolve_device
 from ..core.query import QueryStats, query_count, query_range
-from ..core.serve import (bucket_pow2, knn_seed_radius, make_query_fn,
-                          make_range_fn, pack_query_rects,
-                          pack_serving_arrays, upload_serving_arrays)
+from ..core.serve import (bucket_pow2, knn_seed_radius,
+                          make_distributed_query_fn, make_query_fn,
+                          make_range_fn, mesh_devices, pack_query_rects,
+                          pack_serving_arrays, refresh_shards,
+                          shard_serving_arrays, upload_serving_arrays)
 from ..core.zorder64 import u64_to_z64
 from .result import EngineConfig
 
 _ENGINES = {}
 _CAPABILITIES = {}
-# engines of the reference that the port does not have yet: what a caller
-# asking for one is told
-_WAITING = {
-    "distributed": "the distributed engine comes with the multi-device "
-                   "slice (ROADMAP Queue 1 item 7)",
-}
 _RENAMED = {"xla": "torch", "pallas": "cuda"}
-# EngineConfig fields that only those engines read: set, they would be
-# silently ignored, so attaching with one raises
-_WAITING_FIELDS = {"mesh": "distributed"}
 
 
 class StaleServingError(RuntimeError):
@@ -91,20 +85,12 @@ def engine_capabilities() -> dict:
 def make_engine(name: str, db, config: EngineConfig = None):
     if name == "store" and name not in _ENGINES:
         from ..store import engine as _store_engine  # noqa: F401 — registers
-    if name in _WAITING and name not in _ENGINES:
-        raise NotImplementedError(f"engine {name!r}: {_WAITING[name]}")
     if name not in _ENGINES:
         hint = (f"; the port's engine for {name!r} is {_RENAMED[name]!r}"
                 if name in _RENAMED else "")
         raise KeyError(f"unknown engine {name!r}; registered: "
                        f"{engine_names()}{hint}")
-    config = config or EngineConfig()
-    for field, waits_for in _WAITING_FIELDS.items():
-        if getattr(config, field) is not None:
-            raise NotImplementedError(
-                f"EngineConfig.{field} is read only by the {waits_for!r} "
-                f"engine, which the port lacks: {_WAITING[waits_for]}")
-    return _ENGINES[name](db, config)
+    return _ENGINES[name](db, config or EngineConfig())
 
 
 class BaseEngine:
@@ -195,8 +181,7 @@ class TorchEngine(BaseEngine):
         if self.backend not in self.backends:
             raise ValueError(f"engine {self.name!r} takes backend in "
                              f"{self.backends}; got {self.backend!r}")
-        self.device = resolve_device(cfg.device if cfg.device is not None
-                                     else db.device)
+        self.device = self._resolve_device()
         self._host = None        # numpy ServingArrays (pack source of truth)
         self._arrays = None      # device ServingArrays
         self.built_epoch = -1
@@ -204,6 +189,11 @@ class TorchEngine(BaseEngine):
         # shape-bucketed cache shared across engines) — not on the engine
 
     # -- config ------------------------------------------------------------
+    def _resolve_device(self):
+        cfg = self.cfg
+        return resolve_device(cfg.device if cfg.device is not None
+                              else self.db.device)
+
     @property
     def backend(self) -> str:
         return self.cfg.backend or self.default_backend
@@ -253,11 +243,13 @@ class TorchEngine(BaseEngine):
 
     def _repack_dirty(self, store):
         """Re-pack only the pages dirtied since `built_epoch` into the host
-        arrays, growing the point capacity when a delta page overflows it."""
+        arrays, growing the point capacity when a delta page overflows it.
+        Returns the pages re-packed, or None after a full repack at a grown
+        capacity."""
         index = self.db.index
         dirty = store.dirty_since(self.built_epoch)
         if not dirty:
-            return
+            return set()
         live = {p: store.live_page_rows(p) for p in dirty}
         cap = self._host.points.shape[2]
         need = max(len(r) for r in live.values())
@@ -270,8 +262,9 @@ class TorchEngine(BaseEngine):
             self._host = pack_serving_arrays(
                 index, pad_pages_to=self.pad_pages_to, cap=grown)
             self.db.executor.evict(self)   # cap is a static shape: drop the
-            dirty = store.dirty_since(0)   # fns launched at the old cap
-            live = {p: store.live_page_rows(p) for p in dirty}
+            dirty = None                   # fns launched at the old cap
+            live = {p: store.live_page_rows(p)
+                    for p in store.dirty_since(0)}
         h = self._host
         pts_u32 = h.points.view(np.uint32)
         mbr_u32 = h.page_mbr.view(np.uint32)
@@ -283,6 +276,7 @@ class TorchEngine(BaseEngine):
             mbr_u32[p] = index.mbrs[p].astype(np.uint32)
             h.page_zmin[p] = u64_to_z64(index.page_zmin[p:p + 1])[0]
             h.page_zmax[p] = u64_to_z64(index.page_zmax[p:p + 1])[0]
+        return None if dirty is None else set(dirty)
 
     def _upload(self):
         with obs.span("engine.upload", engine=self.name):
@@ -403,3 +397,89 @@ class CudaEngine(TorchEngine):
                 f"the 'cuda' engine runs the CUDA kernels and needs a CUDA "
                 f"device; got {self.device} (use the 'torch' engine for "
                 f"the plain-torch path on the host)")
+
+
+@register_engine("distributed")
+class DistributedEngine(TorchEngine):
+    """Page-sharded engine over a mesh; counts and overflow summed over the
+    shards (`core.serve.make_distributed_query_fn`).
+
+    `EngineConfig.mesh` is the sequence of devices, one page shard each
+    (default: every visible CUDA device; ``(cpu,)`` under ``device="cpu"``).
+    Pages pad to a multiple of the shard count.  Point queries lower to
+    one-cell counts; range retrieval and kNN are not sharded — the planner
+    serves them via the CPU engine, as in the reference.  Backend 'cuda'
+    (the default unless every mesh device is the CPU) raises at attach on
+    a mesh that holds a CPU device, and never serves through the twins.
+    """
+
+    backends = ("cuda", "torch")
+    capabilities = frozenset({"count", "point"})
+
+    def __init__(self, db, cfg):
+        self._stale_pages = None   # host pages to copy into their shards
+        self._mesh = None
+        super().__init__(db, cfg)
+        if self.backend == "cuda" and any(d.type != "cuda"
+                                          for d in self.mesh):
+            raise ValueError(
+                f"the 'distributed' engine's 'cuda' backend runs the CUDA "
+                f"kernels on every shard; the mesh holds "
+                f"{[str(d) for d in self.mesh]} (use backend='torch' for "
+                f"the plain-torch twins)")
+
+    @property
+    def mesh(self) -> tuple:
+        if self._mesh is None:
+            mesh = self.cfg.mesh
+            if mesh is None:      # every visible card, else the one device
+                dev = super()._resolve_device()
+                mesh = ([torch.device("cuda", i)
+                         for i in range(torch.cuda.device_count())]
+                        if dev.type == "cuda" and dev.index is None
+                        else [dev])
+            self._mesh = mesh_devices(mesh)
+        return self._mesh
+
+    def _resolve_device(self):
+        return self.mesh[0]        # queries and the summed counts live here
+
+    @property
+    def default_backend(self) -> str:
+        # the twins only where no shard is on a card: a mixed mesh takes
+        # 'cuda' and so raises at attach
+        return ("torch" if all(d.type == "cpu" for d in self.mesh)
+                else "cuda")
+
+    @property
+    def pad_pages_to(self) -> int:
+        return self.cfg.pad_pages_to or len(self.mesh)
+
+    def _repack_dirty(self, store):
+        # None (a grown capacity re-packed every page): upload shards whole
+        self._stale_pages = super()._repack_dirty(store)
+
+    def _upload(self):
+        with obs.span("engine.upload", engine=self.name):
+            if self._arrays is not None and self._stale_pages is not None:
+                refresh_shards(self._arrays, self._host, self.mesh,
+                               self._stale_pages)
+            else:
+                self._arrays = shard_serving_arrays(self._host, self.mesh)
+            self._stale_pages = None
+            if obs.enabled():
+                for dev in set(self.mesh):
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+
+    def _build_qfn(self, max_cand):
+        fn, _ = make_distributed_query_fn(
+            self.db.index.curve, self.mesh, k_maxsplit=self.cfg.k_maxsplit,
+            max_cand=max_cand, q_chunk=self.cfg.q_chunk,
+            backend=self.backend)
+        return fn
+
+    def _build_rfn(self, max_cand, max_hits):
+        raise NotImplementedError(
+            "the 'distributed' engine does not shard range retrieval; the "
+            "planner serves Range and kNN through the CPU engine")

@@ -1,7 +1,6 @@
 """repro_torch.api.exec — the execution layer between the typed query
-algebra and the engines: first-class plans, a shape-bucketed executor and
-the Session micro-batcher.  (The reference's multi-shard `Router` comes
-with the multi-device slice, ROADMAP Queue 1 item 7.)
+algebra and the engines: first-class plans, a shape-bucketed executor,
+the Session micro-batcher, and the multi-shard Router.
 
   `QueryPlan` / `Planner` — every dispatch decision (engine routing,
       padded shapes, candidate/hit budgets, the escalation ladder) as an
@@ -11,13 +10,18 @@ with the multi-device slice, ROADMAP Queue 1 item 7.)
   `Session` / `Ticket` — micro-batching: interleaved multi-client
       submissions coalesced into engine-shaped super-batches,
       demultiplexed deterministically in submission order.
+  `Router` / `ShardSpec` / `RouterPlan` — one logical dataset served
+      from N shard Databases (repro_torch.dist sharding rules partition
+      the rows); scatter a plan, execute per shard, merge exactly.
 """
 from .executor import CacheStats, Executor
 from .plan import ExecAccounting, Planner, QueryPlan, Step
+from .router import Router, RouterPlan, ShardSpec
 from .session import ServingTimeout, Session, Ticket
 
 __all__ = [
     "CacheStats", "Executor",
     "ExecAccounting", "Planner", "QueryPlan", "Step",
+    "Router", "RouterPlan", "ShardSpec",
     "ServingTimeout", "Session", "Ticket",
 ]

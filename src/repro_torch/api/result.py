@@ -36,15 +36,18 @@ class EngineConfig:
     backend: str = None        # filter/encode path: 'torch' (plain
                                #   twins) on the 'torch' engine, 'cuda'
                                #   (the hand-written kernels) on the
-                               #   'cuda' engine; the 'store' engine takes
-                               #   either ('cuda' on a CUDA device, the
-                               #   default there; 'torch' the default
-                               #   only under device="cpu")
+                               #   'cuda' engine; the 'store' and
+                               #   'distributed' engines take either
+                               #   ('cuda' on CUDA devices, the default
+                               #   there; 'torch' the default only on a
+                               #   CPU device)
     device: Any = None         # device engines: where the serving arrays
                                #   live (None: the Database's device, else
                                #   CUDA; the 'cuda' engine needs a CUDA one)
-    mesh: Any = None           # distributed only (not yet in the port;
-                               #   attaching any engine with it raises)
+    mesh: Any = None           # distributed only: the devices, one page
+                               #   shard each (default: every visible
+                               #   CUDA device; the engine's device under
+                               #   device="cpu")
     pad_pages_to: int = None   # page-count padding (defaults: 1, or mesh size)
     cap: int = None            # per-page point capacity (default: max page)
     escalate: bool = True      # retry overflowed queries with doubled max_cand

@@ -1,8 +1,9 @@
 """Window-query processing on an LMSFC index (paper §6) — CPU engine.
 
-Faithful per-query engine with the paper's optimizations: projection via
-Theorem 1, recursive query splitting (RQS), MBR disjoint/containment
-short-cuts, and per-page sort-dimension refinement.  Returns COUNT
+Faithful per-query engine with all paper optimizations: projection via
+Theorem 1, recursive query splitting (RQS) or FindNextZaddress (FNZ)
+skipping, MBR disjoint/containment short-cuts, and per-page sort-dimension
+refinement.  Returns COUNT
 aggregates plus the mechanical statistics that the paper reports (pages
 accessed, false-positive points, index accesses).
 
@@ -18,10 +19,8 @@ Beyond COUNT, this module carries the typed query algebra:
 Every function here reads the index's update state (delta pages and
 tombstones, `repro_torch.api.deltas.DeltaStore`), so results reflect
 inserts and deletes.  This is the execution layer behind the "cpu" engine
-of the `repro_torch.api.Database` facade — prefer `Database.query`.
-FindNextZaddress skipping (``skipping="fnz"``) comes with the port of the
-reference's baselines; until then it raises.  The device engine lives in
-serve.py (mask→compact→gather→filter).
+of the `repro_torch.api.Database` facade — prefer `Database.query`.  The
+device engine lives in serve.py (mask→compact→gather→filter).
 """
 from __future__ import annotations
 
@@ -93,8 +92,8 @@ def query_count(index: LMSFCIndex, qL, qU) -> QueryStats:
     stats = QueryStats()
     cfg = index.cfg
     if cfg.skipping == "fnz":
-        raise NotImplementedError("skipping='fnz' needs the FNZ baseline: "
-                                  "see ROADMAP")
+        from ..baselines.fnz import fnz_query  # lazy import, avoids cycle
+        return fnz_query(index, qL, qU)
     pages = _candidate_pages(index, qL, qU, stats)
     total = 0
     for p in pages:

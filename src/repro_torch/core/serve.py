@@ -19,15 +19,23 @@ hand-written kernels for split/z-range encodes and the filter; ``"torch"``
 runs their plain-torch twins.  Outputs are bit-identical either way.
 Exactness: the sub-rectangles partition the query, so filtering with the
 *full* query rectangle counts every point exactly once.
+
+The distributed engine range-shards the pages over a mesh (a sequence of
+devices, one page shard each; one process drives them all); queries are
+replicated, and the shards' int32 partial counts are summed on the mesh's
+first device (the reference's psum).  Page shards are disjoint, so the
+sum is exact.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
 import numpy as np
 import torch
 
+from ..dist.sharding import P
 from ..kernels.window_filter.ops import window_filter, window_match
 from .curve import as_curve
 from .device import resolve_device
@@ -405,3 +413,121 @@ def knn_seed_radius(host: ServingArrays, curve, centers: np.ndarray,
             active[ridx] = False
         w *= 2
     return radius
+
+
+# ---------------------------------------------------------------------------
+# distributed engine (pages sharded over a mesh of devices)
+# ---------------------------------------------------------------------------
+
+MESH_AXIS = "pages"   # the one axis of a mesh: page shards
+
+
+def mesh_devices(mesh) -> tuple:
+    """A mesh — a sequence of devices (or their names), one page shard each
+    — as a tuple of `torch.device`.  A device may repeat: its shards then
+    run one after another on it."""
+    devs = tuple(torch.device(d) for d in mesh)
+    if not devs:
+        raise ValueError("a mesh needs at least one device")
+    return devs
+
+
+class PageShards:
+    """One `ServingArrays` field split over the mesh: `parts[i]` is the
+    i-th contiguous equal block of the page axis, on the mesh's i-th
+    device (the reference's ``P(axes)`` over axis 0)."""
+
+    def __init__(self, parts):
+        self.parts = tuple(parts)
+
+    @property
+    def shape(self) -> tuple:
+        """The global shape (the page axis summed over the shards)."""
+        rest = tuple(self.parts[0].shape[1:])
+        return (sum(int(p.shape[0]) for p in self.parts), *rest)
+
+
+def _on(dev: torch.device):
+    """Make `dev` current while a shard launches (its kernels go to that
+    device's current stream)."""
+    return torch.cuda.device(dev) if dev.type == "cuda" \
+        else contextlib.nullcontext()
+
+
+def _shard_rows(arrays: ServingArrays, n: int) -> int:
+    P_pad = int(np.shape(arrays.page_size)[0])
+    if P_pad % n:
+        raise ValueError(f"{P_pad} pages do not split into {n} equal "
+                         f"shards; pack with pad_pages_to={n}")
+    return P_pad // n
+
+
+def shard_serving_arrays(arrays: ServingArrays, mesh) -> ServingArrays:
+    """Split serving arrays (host numpy or torch) into contiguous equal
+    page blocks, block i on the mesh's i-th device: a `ServingArrays` of
+    `PageShards`.  The page count must be a multiple of the shard count
+    (`pack_serving_arrays(..., pad_pages_to=len(mesh))`)."""
+    devs = mesh_devices(mesh)
+    per = _shard_rows(arrays, len(devs))
+    return arrays.map(lambda a: PageShards(
+        torch.as_tensor(a[i * per:(i + 1) * per]).to(dev)
+        for i, dev in enumerate(devs)))
+
+
+def refresh_shards(sharded: ServingArrays, host: ServingArrays, mesh,
+                   pages) -> None:
+    """Copy `pages` (global ids) of the host arrays into the shards that
+    hold them, in place; every other page stays as it was uploaded."""
+    devs = mesh_devices(mesh)
+    per = _shard_rows(host, len(devs))
+    pages = np.unique(np.asarray(list(pages), dtype=np.int64))
+    for i, dev in enumerate(devs):
+        sel = pages[(pages >= i * per) & (pages < (i + 1) * per)]
+        if not len(sel):
+            continue
+        idx = torch.from_numpy(sel - i * per).to(dev)
+        for f in dataclasses.fields(host):
+            block = torch.from_numpy(getattr(host, f.name)[sel]).to(dev)
+            getattr(sharded, f.name).parts[i].index_copy_(0, idx, block)
+
+
+def make_distributed_query_fn(curve, mesh, *, k_maxsplit: int = 4,
+                              max_cand: int = 64, q_chunk: int = 16,
+                              backend: str = "cuda"):
+    """Every shard prunes and scans its own pages for the full (replicated)
+    query batch with `make_query_fn` on its own device; counts and
+    overflow flags are summed over the shards.
+
+    Returns ``(query_batch, shard_layout)``: query_batch(sharded arrays
+    from `shard_serving_arrays`, queries (Q, d, 2) int32) -> (counts (Q,)
+    int32, overflowed (Q,) int32 — the number of shards whose candidate
+    pages exceeded `max_cand`), both on the mesh's first device;
+    shard_layout is each field's partition spec, ``P("pages")``.  Backend
+    'cuda' needs every mesh device to be a CUDA device: it never runs the
+    twins."""
+    devs = mesh_devices(mesh)
+    if backend == "cuda" and any(d.type != "cuda" for d in devs):
+        raise ValueError(f"backend 'cuda' runs the CUDA kernels on every "
+                         f"shard; the mesh holds {[str(d) for d in devs]} "
+                         f"(use backend='torch' for the plain-torch twins)")
+    local = make_query_fn(curve, k_maxsplit=k_maxsplit, max_cand=max_cand,
+                          q_chunk=q_chunk, backend=backend)
+
+    def query_batch(arrays: ServingArrays, queries):
+        queries = torch.as_tensor(queries)
+        outs = []
+        for i, dev in enumerate(devs):     # launch every shard first
+            with _on(dev):
+                outs.append(local(arrays.map(lambda s: s.parts[i]),
+                                  queries.to(dev)))
+        # the psum: int32 sums in shard order on the first device
+        counts = outs[0][0].to(devs[0])
+        over = outs[0][1].to(devs[0])
+        for c, o in outs[1:]:
+            counts = counts + c.to(devs[0])
+            over = over + o.to(devs[0])
+        return counts, over
+
+    layout = ServingArrays(**{f.name: P(MESH_AXIS)
+                              for f in dataclasses.fields(ServingArrays)})
+    return query_batch, layout

@@ -20,8 +20,8 @@ The layer between many concurrent clients and the execution stack
       open-loop load harness: Poisson arrivals, Zipfian spatial skew,
       hundreds of interleaved clients, p50/p99-vs-sustained-q/s curves.
 
-Entry point: ``db.serve(slo=..., engine=...)`` (a `Router` backend waits
-for the multi-device slice, ROADMAP Queue 1 item 7).
+Entry point: ``db.serve(slo=..., engine=...)`` or
+``router.serve(slo=..., engine=...)``.
 `ServingTimeout` (a `TimeoutError`) is shared with `Session.Ticket`.
 """
 from ..api.exec.session import ServingTimeout

@@ -1,4 +1,5 @@
-"""`AsyncServer` — the asynchronous serving front over a `Database`.
+"""`AsyncServer` — the asynchronous serving front over a `Database` or
+`Router`.
 
 The Session micro-batcher is a synchronous tick loop: somebody has to
 call `flush()`, and while they do, nobody submits.  The serving front
@@ -37,7 +38,6 @@ import time
 import numpy as np
 
 from .. import obs
-from ..api.database import Database
 from ..api.exec.session import ServingTimeout
 from ..api.queries import Query
 from .slo import AdaptiveController, ServerOverloaded, SLOConfig, \
@@ -112,21 +112,15 @@ class ServerTicket:
 class AsyncServer:
     """Async serving front over one backend (module docstring).
 
-    `backend` is a `Database` (the JAX package also serves a `Router`,
-    which the port has not yet: ROADMAP Queue 1 item 7).  `slo` is the
-    `SLOConfig` contract; `engine` pins the execution engine for every
-    served batch.
+    `backend` is anything with the Session substrate — a `Database` or a
+    `Router` (`.d`, `.query`, `.session()`).  `slo` is the `SLOConfig`
+    contract; `engine` pins the execution engine for every served batch.
     Use as a context manager (``with db.serve() as srv:``) or call
     `close()` — both drain the queue before stopping the loop.
     """
 
     def __init__(self, backend, *, slo: SLOConfig = None, engine: str = None,
                  clock=time.perf_counter):
-        if not isinstance(backend, Database):
-            raise NotImplementedError(
-                f"AsyncServer serves a repro_torch Database; got "
-                f"{type(backend).__name__} (serving a Router waits for the "
-                f"multi-device slice, ROADMAP Queue 1 item 7)")
         self.backend = backend
         self.slo = slo or SLOConfig()
         self.engine = engine

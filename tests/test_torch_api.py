@@ -15,9 +15,9 @@ fallbacks, epochs, `QueryPlan.describe()` (engine names mapped), the plan's
 accounting and `CacheStats`.  The reference test's own checks (brute
 force, capacity growth, epochs) run on the port's side.  The `cuda`
 engine refuses a CPU device and is driven on a card by
-`tests/test_torch_cuda.py`; `distributed` raises, naming ROADMAP (the
-store and the serving front have files of their own:
-`tests/test_torch_store.py`, `tests/test_torch_serving.py`).
+`tests/test_torch_cuda.py`; the `distributed` engine's twins are in
+`tests/test_torch_dist.py` (the store and the serving front have files of
+their own: `tests/test_torch_store.py`, `tests/test_torch_serving.py`).
 """
 import dataclasses
 
@@ -39,7 +39,8 @@ from repro_torch.core import index as index_mod
 from repro_torch.core.index import IndexConfig, LMSFCIndex
 from repro_torch.core.serve import ServingArrays, pack_serving_arrays
 
-PORT_ENGINE = {"xla": "torch", "pallas": "torch", "cpu": "cpu", None: None}
+PORT_ENGINE = {"xla": "torch", "pallas": "torch", "cpu": "cpu",
+               "distributed": "distributed", None: None}
 ARRAYS = ("counts", "rows", "offsets", "found", "neighbors", "dists",
           "overflowed", "residual_overflow")
 SCALARS = ("escalations", "cpu_fallbacks", "epoch", "k", "metric")
@@ -226,24 +227,29 @@ def test_cuda_engine_needs_a_card_and_the_kernels(monkeypatch):
 
 
 def test_engines_and_paths_that_wait_raise_naming_roadmap(tmp_path):
-    """The distributed engine and `EngineConfig.mesh` wait for the
-    multi-device slice and raise naming ROADMAP.  The store and the
-    serving front are ported: as in the reference, the `store` engine
-    refuses a Database with no segment, `group_pages`/`cache_bytes` are
-    store knobs the other engines ignore, a missing segment raises
-    `StoreCorruptionError`, and `serve` returns a server."""
+    """No engine or path of the reference waits any more.  The
+    distributed engine attaches (`make_engine`, `engine`, a per-call
+    `engine=`) and counts like the reference's, and `EngineConfig.mesh`
+    is a knob the other engines ignore, as in the reference.  The store
+    and the serving front: the `store` engine refuses a Database with no
+    segment, `group_pages`/`cache_bytes` are store knobs the other engines
+    ignore, a missing segment raises `StoreCorruptionError`, and `serve`
+    returns a server."""
     from repro.store import StoreCorruptionError as RCorrupt
     from repro_torch import serving
     from repro_torch.store import StoreCorruptionError
-    data, wl, K, _ = _data(n=1500, n_q=4)
+    data, wl, K, want = _data(n=1500, n_q=4)
     db = tapi.Database.fit(data, wl, K=K, learn=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tapi.make_engine("distributed", db)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        db.engine("distributed")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        db.query(tapi.Count(*wl), engine="distributed")
     ref = rapi.Database.fit(data, wl, K=K, learn=False)
+    assert isinstance(tapi.make_engine("distributed", db),
+                      tapi.engines.BaseEngine)
+    got = db.query(tapi.Count(*wl), engine="distributed")
+    rgot = ref.query(rapi.Count(*wl), engine="distributed")
+    assert got.engine == rgot.engine == "distributed" and got.exact
+    np.testing.assert_array_equal(got.counts, rgot.counts)
+    np.testing.assert_array_equal(got.counts, want)
+    assert db.engine("distributed") is db and \
+        db.active_engine == "distributed"
     for api, d in ((rapi, ref), (tapi, db)):
         with pytest.raises(ValueError, match="on-disk segment"):
             d.engine("store")
@@ -255,17 +261,18 @@ def test_engines_and_paths_that_wait_raise_naming_roadmap(tmp_path):
         with pytest.raises(KeyError, match=port_name):
             db.engine(name)
     for name in ("cpu", "torch"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            db.engine(name, tapi.EngineConfig(mesh=object()))
-        db.engine(name, tapi.EngineConfig(group_pages=64, cache_bytes=1 << 28))
+        db.engine(name, tapi.EngineConfig(mesh=["cpu"] * 2, group_pages=64,
+                                          cache_bytes=1 << 28))
         res = db.query(tapi.Count(*wl))
         assert res.engine == name and res.exact
+        np.testing.assert_array_equal(res.counts, want)
     with db.serve(engine="cpu") as srv:
         assert isinstance(srv, serving.AsyncServer)
         np.testing.assert_array_equal(
             srv.submit(tapi.Count(*wl)).result(timeout=30).counts,
             db.query(tapi.Count(*wl), engine="cpu").counts)
-    assert tapi.engine_names() == ["cpu", "cuda", "store", "torch"]
+    assert tapi.engine_names() == ["cpu", "cuda", "distributed", "store",
+                                   "torch"]
 
 
 # ---------------------------------------------------------------------------

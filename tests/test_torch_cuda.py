@@ -615,3 +615,112 @@ print("OK", loads)
                                "PYTHONPATH": str(root / "src")})
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "OK" in proc.stdout
+
+
+def test_distributed_engine_serves_through_the_kernels_on_every_shard(
+        cuda_device):
+    """The `distributed` engine on the card — the default mesh (every
+    visible card) and four shards on one card — launches the window and
+    encode kernels on every shard, and its counts, found flags and
+    overflow flags equal the `cuda` engine's, forced escalation and an
+    update included; backend 'cuda', named or by default, on a mesh
+    holding the CPU raises."""
+    from repro_torch import api
+
+    data = make_dataset("osm", 30_000, seed=11)
+    Ls, Us = make_workload(data, 64, seed=12, width_scale=0.03, K=32)
+    db = api.Database.fit(data, K=32, learn=False,
+                          cfg=IndexConfig(page_bytes=2048))
+    db.engine("cuda", api.EngineConfig(q_chunk=8, max_cand=4))
+    probes = np.concatenate([data[::3000], [[1, 2], [3, 4]]]).astype(
+        np.uint64)
+    for step, mesh in enumerate((None, ["cuda:0"] * 4)):
+        if step:
+            db.insert(np.asarray([[5, 6], [7, 8]], dtype=np.uint64))
+            db.delete(data[17])
+        db.engine("distributed", api.EngineConfig(mesh=mesh, q_chunk=8,
+                                                  max_cand=4))
+        eng = db.engines["distributed"]
+        assert eng.backend == "cuda" and len(eng.mesh) == (
+            torch.cuda.device_count() if mesh is None else 4)
+        cuda_lib.reset_launches()
+        got = [db.query(api.Count(Ls, Us)), db.query(api.Point(probes))]
+        for name in ("window_filter", "sfc_encode"):
+            assert cuda_lib.LAUNCHES[name] > 0, name
+        want = [db.query(api.Count(Ls, Us), engine="cuda"),
+                db.query(api.Point(probes), engine="cuda")]
+        for g, w in zip(got, want):
+            assert g.engine == "distributed" and g.exact
+            assert g.cpu_fallbacks == 0
+            for f in ("counts", "found"):
+                if hasattr(w, f):
+                    np.testing.assert_array_equal(getattr(g, f),
+                                                  getattr(w, f))
+        assert got[0].escalations > 0
+        if len(eng.mesh) == 1:
+            np.testing.assert_array_equal(got[0].overflowed,
+                                          want[0].overflowed)
+    for backend in ("cuda", None):
+        with pytest.raises(ValueError, match="CUDA kernels"):
+            db.engine("distributed", api.EngineConfig(
+                mesh=["cuda:0", "cpu"], backend=backend))
+
+
+def test_router_shards_serve_through_the_cuda_engine(cuda_device):
+    """A Router whose shards serve on the `cuda` engine: every kind
+    launches the kernels and equals an unsharded Database on the host
+    (kNN tie-breaks included), and its server equals serial replay; a
+    shard on the CPU refuses the `cuda` engine."""
+    from repro_torch import api, serving
+
+    data = make_dataset("osm", 30_000, seed=13)
+    Ls, Us = make_workload(data, 32, seed=14, width_scale=0.03, K=32)
+    cfg = IndexConfig(page_bytes=2048)
+    router = api.Router.build(data, 3, K=32, learn=False, cfg=cfg)
+    router.engine("cuda", api.EngineConfig(q_chunk=8))
+    oracle = api.Database.fit(data, K=32, learn=False, cfg=cfg,
+                              device="cpu")
+    queries = [api.Count(Ls, Us), api.Range(Ls, Us),
+               api.Point(np.concatenate([data[::997], [[1, 2]]]).astype(
+                   np.uint64)),
+               api.Knn(data[:5], k=7), api.Knn(data[5:9], k=3,
+                                                metric="linf")]
+    cuda_lib.reset_launches()
+    got = [router.query(q) for q in queries]
+    for name in ("window_filter", "window_match", "sfc_encode"):
+        assert cuda_lib.LAUNCHES[name] > 0, name
+    for g, q in zip(got, queries):
+        assert g.engine == "router[3xcuda]" and g.cpu_fallbacks == 0
+        serving.assert_bit_identical(g, oracle.query(q), q.kind)
+    log = serving.make_query_log(data, serving.LoadSpec(
+        rate_qps=400.0, duration_s=0.25, n_clients=10, knn_k=4, seed=15),
+        K=32)
+    with router.serve(engine="cuda") as srv:
+        point = serving.run_open_loop(srv, log)
+    assert point["completed"] == point["admitted"] and point["failed"] == 0
+    replay = serving.replay_serial(router, srv.query_log(), engine="cuda")
+    for seq, res in point["results"].items():
+        serving.assert_bit_identical(res, replay[seq], f"seq{seq}")
+    host = api.Router.build(data[:3000], 2, K=32, learn=False, cfg=cfg,
+                            device="cpu")
+    with pytest.raises(ValueError, match="CUDA device"):
+        host.engine("cuda")
+
+
+def test_indexed_dataset_selects_through_window_match(cuda_device):
+    """`IndexedDataset` without ``device=``: a select is a Range on the
+    `cuda` engine (the `window_match` kernel launched), verified against
+    the full metadata mask and equal to the host dataset's."""
+    from repro_torch.data.pipeline import IndexedDataset, synth_corpus
+
+    docs, meta = synth_corpus(3000, vocab=64, max_len=64, seed=16)
+    ds = IndexedDataset(docs, meta, seed=0, verify_selects=True)
+    host = IndexedDataset(docs, meta, seed=0, device="cpu")
+    assert ds.db.default_engine == "cuda"
+    cuda_lib.reset_launches()
+    rng = np.random.default_rng(17)
+    for _ in range(8):
+        lo, hi = np.sort(rng.uniform(0, 1, (2, 4)), axis=0)
+        np.testing.assert_array_equal(ds.select(lo, hi),
+                                      host.select(lo, hi))
+    assert cuda_lib.LAUNCHES["window_match"] > 0

@@ -4,10 +4,9 @@ no per-budget leak), executed-plan accounting, and Session micro-batching
 determinism.
 
 Twins of `tests/test_exec.py` (those of its Session cases are in
-`tests/test_torch_session.py`) less its router cases and its
-`distributed` routing cases (the router and that engine come with the
-multi-device slice; the routing itself is held in
-`tests/test_torch_queries.py`).  `Pair` (from `tests/test_torch_api.py`)
+`tests/test_torch_session.py`, of its Router cases in
+`tests/test_torch_router.py`, of its `distributed` routing cases in
+`tests/test_torch_dist.py`).  `Pair` (from `tests/test_torch_api.py`)
 serves every query through the reference's `Database` (`cpu`, `xla`) and
 the port's (`cpu`, `torch` with ``device="cpu"``) on the same seeded data
 and holds results, plans (`describe()`, accounting) and `CacheStats`

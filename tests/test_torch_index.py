@@ -156,10 +156,19 @@ def test_cpu_engine_matches_reference(family):
 
 
 def test_fnz_skipping_is_not_ported_yet():
+    """FNZ skipping is ported (`repro_torch.baselines.fnz`): an index
+    built with ``skipping="fnz"`` counts exactly, with the reference's
+    `QueryStats`."""
+    import dataclasses
     data = rsyn.make_dataset("osm", 500, seed=0)
     idx = ti.LMSFCIndex.build(data, cfg=ti.IndexConfig(skipping="fnz"))
-    with pytest.raises(NotImplementedError, match="fnz"):
-        tq.query_count(idx, data[0], data[0])
+    ridx = ri.LMSFCIndex.build(data, cfg=ri.IndexConfig(skipping="fnz"))
+    Ls, Us = rwl.make_workload(data, 12, seed=2, width_scale=0.1)
+    for lo, hi in [(data[0], data[0])] + list(zip(Ls, Us)):
+        st = tq.query_count(idx, lo, hi)
+        assert st.result == tq.brute_force_count(data, lo, hi)
+        assert dataclasses.asdict(st) == \
+            dataclasses.asdict(rq.query_count(ridx, lo, hi))
 
 
 @pytest.mark.parametrize("name", ["osm", "nyc", "stock"])

@@ -44,3 +44,14 @@ def test_port_sources_never_name_jax_or_reference():
     assert pattern.search("import jax.numpy as jnp")
     assert pattern.search("from repro.core import serve")
     assert not pattern.search("from repro_torch.core import serve")
+
+
+def test_multi_shard_slice_modules_are_covered():
+    """The baselines, the data pipeline, the sharding rules and the Router
+    are among the modules imported above with JAX and `repro` blocked."""
+    for m in ("repro_torch.baselines.zm", "repro_torch.baselines.rstar",
+              "repro_torch.baselines.flood", "repro_torch.baselines.fnz",
+              "repro_torch.data.pipeline", "repro_torch.dist.sharding",
+              "repro_torch.api.exec.router", "repro_torch.api.engines",
+              "repro_torch.core.serve", "repro_torch.serving.server"):
+        assert m in MODULES, m

@@ -11,9 +11,9 @@ exactly: rows, offsets, counts, found flags, kNN rows and exact distances,
 overflow flags, escalations, fallbacks, plans and `CacheStats`.  The
 reference's `pallas` cases (interpret mode) are held against the port's
 `torch` engine in `tests/test_torch_api.py` and
-`tests/test_torch_updates.py`; its
-`distributed` routing case is held here by a count-and-point engine
-registered for the test, against the reference's `distributed` engine.
+`tests/test_torch_updates.py`; its `distributed` routing case runs
+here on the port's `distributed` engine (one page shard on the CPU),
+against the reference's.
 """
 import numpy as np
 import pytest
@@ -25,7 +25,6 @@ from repro.core.theta import default_K
 from repro.data.synth import make_dataset
 from repro.data.workload import make_workload
 from repro_torch import api as tapi
-from repro_torch.api import engines as tengines
 from repro_torch.api.deltas import rows_in_set
 from test_torch_api import Pair
 
@@ -208,26 +207,12 @@ def test_capability_matrix_registered():
     assert caps["cpu"] == rcaps["cpu"]
     assert caps["torch"] == rcaps["xla"] and caps["cuda"] == rcaps["pallas"]
     assert caps["store"] == rcaps["store"]
-    assert "distributed" not in caps        # waits for ROADMAP Queue 1 item 7
+    assert "count" in caps["distributed"]
+    assert "range" not in caps["distributed"]
+    assert caps["distributed"] == rcaps["distributed"]
 
 
-@pytest.fixture
-def count_point_engine():
-    """An engine with the reference's `distributed` capabilities (count
-    and point only), registered for one test and removed after it."""
-    name = "count_point_only"
-
-    @tengines.register_engine(name)
-    class CountPointOnly(tengines.TorchEngine):
-        capabilities = frozenset({"count", "point"})
-    try:
-        yield name
-    finally:
-        tengines._ENGINES.pop(name)
-        tengines._CAPABILITIES.pop(name)
-
-
-def test_planner_routes_unsupported_kinds_to_cpu(fixture, count_point_engine):
+def test_planner_routes_unsupported_kinds_to_cpu(fixture):
     pair, data, (Ls, Us) = fixture
     ref = rapi.Database.fit(data, (Ls, Us), K=pair.ref.index.K, learn=False,
                             cfg=pair.ref.index.cfg)
@@ -235,25 +220,24 @@ def test_planner_routes_unsupported_kinds_to_cpu(fixture, count_point_engine):
                            cfg=pair.port.index.cfg, device="cpu")
     cfg = dict(q_chunk=8, max_cand=db.num_pages)
     ref.engine("distributed", rapi.EngineConfig(**cfg))
-    db.engine(count_point_engine, tapi.EngineConfig(**cfg))
+    db.engine("distributed", tapi.EngineConfig(**cfg))
     mk = [lambda a: a.Count(Ls, Us), lambda a: a.Range(Ls, Us),
           lambda a: a.Knn(data[3], k=3), lambda a: a.Point(data[3])]
     cnt, rr, nn, pt = [db.query(m(tapi)) for m in mk]
     rcnt, rrr, rnn, rpt = [ref.query(m(rapi)) for m in mk]
-    assert cnt.engine == count_point_engine and cnt.exact
+    assert cnt.engine == "distributed" and cnt.exact
     assert rr.engine == "cpu"              # planner fallback
     for i, (qL, qU) in enumerate(zip(Ls, Us)):
         np.testing.assert_array_equal(rr.rows_for(i),
                                       brute_force_range(data, qL, qU))
     assert nn.engine == "cpu"
-    assert pt.engine == count_point_engine and pt.found[0]
+    assert pt.engine == "distributed" and pt.found[0]
     np.testing.assert_array_equal(cnt.counts, rcnt.counts)
     np.testing.assert_array_equal(rr.rows, rrr.rows)
     np.testing.assert_array_equal(nn.neighbors, rnn.neighbors)
     np.testing.assert_array_equal(pt.found, rpt.found)
     for got, want in ((cnt, rcnt), (pt, rpt)):
-        assert got.plan.describe() == want.plan.describe().replace(
-            "'distributed'", f"'{count_point_engine}'")
+        assert got.plan.describe() == want.plan.describe()
     assert (rr.engine, nn.engine) == (rrr.engine, rnn.engine)
 
 

@@ -1,10 +1,9 @@
 """The port's serving front (`repro_torch.serving`) against the
 reference's (`repro.serving`).
 
-Twins of `tests/test_serving.py` (all but its Router case: the port's
-server takes a `Database`, and serving a Router waits for ROADMAP Queue 1
-item 7).  Every scenario runs through both packages on the same seeded
-data: the SLO contract's validation, the AIMD controller's trajectory,
+Twins of `tests/test_serving.py` (its Router case is in
+`tests/test_torch_router.py`).  Every scenario runs through both packages
+on the same seeded data: the SLO contract's validation, the AIMD controller's trajectory,
 the weighted-fair queue's order, the server's exactness (served results
 equal serial replay bit for bit, and equal the reference's), its
 overload, backpressure, timeout and failed-batch contracts, the Session
@@ -392,20 +391,29 @@ def test_server_rejects_bad_submissions_in_caller_thread(dbs):
 
 
 def test_server_takes_a_database_and_names_roadmap_for_a_router(dbs):
-    """The reference also serves a `Router`; the port's server takes a
-    `Database` and says where the Router comes (ROADMAP Queue 1 item 7)."""
-    ref, port, _, _ = dbs
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsrv.AsyncServer(ref)                # not the port's Database
-
-    class Router:                            # a stand-in with the surface
-        d = 2
-
-        def session(self, **kw):
-            return port.session(**kw)
-
-    with pytest.raises(NotImplementedError, match="Router.*ROADMAP"):
-        tsrv.AsyncServer(Router())
+    """As the reference's, the port's server takes any backend with the
+    Session substrate: its `Database` and its `Router` (the ported
+    multi-shard path), each serving results equal to the reference's
+    server over the reference's Router."""
+    ref, port, data, (Ls, Us) = dbs
+    routers = {tapi: tapi.Router.build(data, 2, K=port.index.K,
+                                       learn=False, device="cpu"),
+               rapi: rapi.Router.build(data, 2, K=port.index.K,
+                                       learn=False)}
+    served = {}
+    for api, srv_mod in SIDES:
+        for backend in (routers[api], _pick(dbs, api)):
+            with srv_mod.AsyncServer(backend, engine="cpu") as srv:
+                qs = _mixed_queries(api, data, Ls, Us, n=8, seed=3)
+                served[api, type(backend).__name__] = [
+                    t.result(timeout=30) for t in
+                    [srv.submit(q) for q in qs]]
+    for kind in ("Router", "Database"):
+        for got, want in zip(served[tapi, kind], served[rapi, kind]):
+            tsrv.assert_bit_identical(got, want, context=kind)
+            assert got.engine == want.engine
+    for a, b in zip(served[tapi, "Router"], served[tapi, "Database"]):
+        tsrv.assert_bit_identical(a, b, context="router vs database")
 
 
 def test_server_over_device_and_store_engines_matches_serial(dbs, tmp_path):

@@ -1,8 +1,8 @@
 """The port's out-of-core store (`repro_torch.store`) against the
 reference's (`repro.store`).
 
-Twins of `tests/test_store.py` (all but its `data.pipeline` case, which
-waits for ROADMAP Queue 1 item 6).  Every scenario runs through both
+Twins of `tests/test_store.py` (its `data.pipeline` case is in
+`tests/test_torch_pipeline.py`).  Every scenario runs through both
 packages on the same seeded rows: segment builds (every array byte for
 byte, the manifest equal apart from its build record), checksum and
 truncation failures, the writer's order and dedup checks, page-group
