@@ -112,17 +112,43 @@ no result.  Phases, each printing one JSON line:
    per layer), the caches stitched into
    a state of 2,048 + 32 slots, 32 greedy decode steps; the prefill is
    held against the plain-torch attention backend on the card;
-15. launch check: every kernel ran on each path, the window and encode
+15. lm_families: the other LM families at their published widths on
+   seeded random bf16 weights, one config after another, each freed
+   before the next: granite-moe-3b-a800m (32 layers, 2 x 2,048 tokens),
+   mixtral-8x22b (12 of 56 layers: 282 GB of bf16 weights do not fit,
+   12 layers are ~61 GB; 1 x 8,192 tokens, so its 4,096-token window
+   bites), qwen2-vl-72b (32 of 80 layers, ~61 GB; 1,024 image embeddings
+   on a 32 x 32 M-RoPE grid, 2 x 2,048), seamless-m4t-medium (12 + 12
+   layers, 2 x 2,048 tokens over 512 encoder frames), zamba2-1.2b (38
+   layers) and xlstm-125m (12 layers), 2 x 2,048 each.  First the bf16
+   flash kernel alone at each of the config's self-attention shapes
+   (seamless's encoder non-causal over 512 frames and its causal
+   decoder; mixtral's window), on seeded inputs in the model's strided
+   layout, held against `mha_ref` at 2e-2 and `flash_tc_ref` at 1e-2 and
+   timed beside SDPA.  Then a prefill through the flash kernel launches
+   it exactly once a self-attention (32 / 12 / 32 / 24 / 6 / 0; enc-dec
+   cross-attention runs the plain walk, xLSTM has no attention) and
+   nothing else, held against the plain-torch attention backend at atol
+   0.15 / rtol 0.1 with equal (or tied) greedy first tokens; then 16 (8)
+   greedy decode steps from the prefill's caches, or, for zamba2 and
+   xlstm, 16 steps from the zero state over the prompt, each held
+   against the prefill's logits at its position at a relative L2 bar
+   (the JAX package's own full-depth prefill and decode differ past atol
+   0.15 / rtol 0.1), and two planted faults (the state not carried, the
+   prompt read one token ahead) must each pass that bar;
+16. launch check: every kernel ran on each path, the window and encode
    kernels in the store and serving phases too, `window_filter` and
    `sfc_encode` in the distributed and router phases, `window_match` in
-   the router and pipeline phases.
+   the router and pipeline phases, `flash_attention_tc` in every
+   attention family.
 
 The line before the last lists the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero without
 that line.  ``--osm-rows``/``--nyc-rows``/``--batches``/``--smbo-iters``/
 ``--lm-layers``/``--decode-steps``/``--dp-prefix``/``--store-rows``/
-``--serve-seconds``/``--router-shards``/``--pipeline-docs`` cut the depth
-for a quick run; the defaults are the full run.
+``--serve-seconds``/``--router-shards``/``--pipeline-docs``/
+``--lm-families`` cut the depth for a quick run; the defaults are the full
+run.
 """
 from __future__ import annotations
 
@@ -150,6 +176,7 @@ MAX_CAND = 256
 MAX_HITS = 65536
 MAIN_CAP = 1024                # page capacity of the main path's index
 CARD = None                    # nvidia-smi's name and power limit (setup)
+START = time.perf_counter()    # the script's start, for `script_s`
 
 
 class SmokeFailure(Exception):
@@ -162,6 +189,11 @@ def check(cond, msg: str) -> None:
 
 
 def emit(obj: dict) -> None:
+    """Print one JSON line; a phase's line also carries the script's wall
+    seconds so far (`script_s`), which time the phases against the
+    1,200 s budget."""
+    if "phase" in obj:
+        obj = {**obj, "script_s": time.perf_counter() - START}
     print(json.dumps(obj), flush=True)
 
 
@@ -2314,69 +2346,104 @@ def flash_bound(B, H, KH, S, dh, dtype: str, causal, window) -> dict:
             "fp32_nontensor_ms": flops / FLOPS_PER_S["float32"] * 1e3}
 
 
-def phase_kernels_flash(seed: int) -> dict:
-    """Each shape through `flash_attention` (the bf16 or the float32
-    kernel by dtype), held against `mha_ref` (and the bf16 kernel against
-    `flash_tc_ref`), then timed beside the twin and SDPA.  The counts of
-    the held calls, one per shape, are kept as `held_launches`."""
+def _twin_err(twin, got, q, k, v, tol: float, **kw) -> tuple:
+    """max |got - twin(q, k, v)| and whether every element is within `tol`
+    (atol = rtol), the twin run one kv head's query group at a time: its
+    S x S float32 scores then take 1/KH of the memory (1.6 GB a group at
+    mixtral's S 8,192, where all 48 heads at once would take 13 GB)."""
     import torch
-    import torch.nn.functional as F
+    g = q.shape[1] // k.shape[1]
+    err, ok = 0.0, True
+    for j in range(k.shape[1]):
+        hs = slice(j * g, (j + 1) * g)
+        want = twin(q[:, hs], k[:, j:j + 1], v[:, j:j + 1], **kw).float()
+        o = got[:, hs].float()
+        err = max(err, (o - want).abs().max().item())
+        ok &= bool(torch.allclose(o, want, atol=tol, rtol=tol))
+    return err, ok
+
+
+def hold_flash(label: str, q, k, v, *, causal: bool, window: int) -> dict:
+    """One `flash_attention` call, which must launch its dtype's kernel
+    once and nothing else and write o with q's strides (bf16), held
+    against `mha_ref` at FLASH_TOL and, for bf16, against `flash_tc_ref`
+    at FLASH_TC_TOL."""
+    import torch
     from repro_torch.kernels import cuda_lib
     from repro_torch.kernels.flash_attention.ops import (KERNELS,
                                                          flash_attention)
     from repro_torch.kernels.flash_attention.ref import flash_tc_ref, mha_ref
+    kw = dict(causal=causal, window=window)
+    kernel = KERNELS[q.dtype]
+    before = dict(cuda_lib.LAUNCHES)
+    got = flash_attention(q, k, v, **kw)
+    check(cuda_lib.LAUNCHES[kernel] == before[kernel] + 1
+          and sum(cuda_lib.LAUNCHES.values()) == sum(before.values()) + 1,
+          f"flash_attention[{label}] did not launch {kernel} once")
+    check(got.stride() == q.stride() or q.dtype == torch.float32,
+          f"flash_attention[{label}]: output strides {got.stride()} "
+          f"differ from q's {q.stride()}")
+    tol = FLASH_TOL[str(q.dtype).split(".")[-1]]
+    err, ok = _twin_err(mha_ref, got, q, k, v, tol, **kw)
+    check(ok, f"flash_attention[{label}] disagrees with mha_ref (max abs "
+              f"{err}, tolerance {tol})")
+    res = {"kernel": kernel, "tolerance": tol, "max_abs_err": err}
+    if q.dtype == torch.bfloat16:
+        tc_err, ok = _twin_err(flash_tc_ref, got, q, k, v, FLASH_TC_TOL, **kw)
+        check(ok, f"flash_attention[{label}] disagrees with flash_tc_ref "
+                  f"(max abs {tc_err}, tolerance {FLASH_TC_TOL})")
+        res.update(tc_twin_tolerance=FLASH_TC_TOL,
+                   tc_twin_max_abs_err=tc_err)
+    return res
+
+
+def flash_inputs(B, H, KH, S, dh, dtype: str, strided: bool, gen):
+    """Seeded q (B, H, S, dh), k and v (B, KH, S, dh) on the card; strided:
+    (B, heads, S, dh) views of (B, S, heads, dh) tensors, as
+    `blocked_attention` passes them."""
+    import torch
+    dt = getattr(torch, dtype)
+    if strided:
+        return tuple(torch.randn(B, S, h, dh, generator=gen, device="cuda")
+                     .to(dt).transpose(1, 2) for h in (H, KH, KH))
+    return tuple(torch.randn(B, h, S, dh, generator=gen, device="cuda")
+                 .to(dt) for h in (H, KH, KH))
+
+
+def sdpa_call(q, k, v, *, causal: bool, window: int):
+    """`scaled_dot_product_attention` on the same inputs and masks (the
+    library time of the flash rows)."""
+    import torch
+    import torch.nn.functional as F
+    mask = None
+    if window > 0:
+        r = torch.arange(q.shape[2], device=q.device)
+        mask = (r[None, :] <= r[:, None]) & (r[None, :] >= r[:, None]
+                                             - window + 1)
+    return lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=True)
+
+
+def phase_kernels_flash(seed: int) -> dict:
+    """Each shape through `flash_attention` (the bf16 or the float32
+    kernel by dtype), held by `hold_flash`, then timed beside the twin
+    and SDPA.  The counts of the held calls, one per shape, are kept as
+    `held_launches`."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import (KERNELS,
+                                                         flash_attention)
+    from repro_torch.kernels.flash_attention.ref import mha_ref
     gen = torch.Generator(device="cuda").manual_seed(seed)
     out, held = {}, {name: 0 for name in KERNELS.values()}
     for name, B, H, KH, S, dh, dtype, causal, window, strided in FLASH_SHAPES:
-        dt = getattr(torch, dtype)
-        if strided:
-            q, k, v = (torch.randn(B, S, h, dh, generator=gen, device="cuda")
-                       .to(dt).transpose(1, 2) for h in (H, KH, KH))
-        else:
-            q, k, v = (torch.randn(B, h, S, dh, generator=gen, device="cuda")
-                       .to(dt) for h in (H, KH, KH))
+        q, k, v = flash_inputs(B, H, KH, S, dh, dtype, strided, gen)
         kw = dict(causal=causal, window=window)
-        kernel = KERNELS[dt]
-        before = dict(cuda_lib.LAUNCHES)
-        got = flash_attention(q, k, v, **kw)
-        check(cuda_lib.LAUNCHES[kernel] == before[kernel] + 1
-              and sum(cuda_lib.LAUNCHES.values())
-              == sum(before.values()) + 1,
-              f"flash_attention[{name}] did not launch {kernel} once")
-        held[kernel] += 1
-        check(got.stride() == q.stride() or dt == torch.float32,
-              f"flash_attention[{name}]: output strides {got.stride()} "
-              f"differ from q's {q.stride()}")
-        want = mha_ref(q, k, v, **kw)
-        torch.cuda.synchronize()
-        tol = FLASH_TOL[dtype]
-        err = (got.float() - want.float()).abs().max().item()
-        check(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
-              f"flash_attention[{name}] disagrees with mha_ref (max abs "
-              f"{err}, tolerance {tol})")
-        res = {"shape": [B, H, KH, S, dh], "dtype": dtype, "kernel": kernel,
+        res = {"shape": [B, H, KH, S, dh], "dtype": dtype,
                "strided": strided, "causal": causal, "window": window,
-               "tolerance": tol, "max_abs_err": err}
-        del want
-        if dt == torch.bfloat16:
-            twin = flash_tc_ref(q, k, v, **kw)
-            tc_err = (got.float() - twin.float()).abs().max().item()
-            check(torch.allclose(got.float(), twin.float(),
-                                 atol=FLASH_TC_TOL, rtol=FLASH_TC_TOL),
-                  f"flash_attention[{name}] disagrees with flash_tc_ref "
-                  f"(max abs {tc_err}, tolerance {FLASH_TC_TOL})")
-            res.update(tc_twin_tolerance=FLASH_TC_TOL,
-                       tc_twin_max_abs_err=tc_err)
-            del twin
-        del got
-        mask = None
-        if window > 0:
-            r = torch.arange(S, device="cuda")
-            mask = (r[None, :] <= r[:, None]) & (r[None, :] >= r[:, None]
-                                                 - window + 1)
-        sdpa = lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, is_causal=causal and mask is None,
-            enable_gqa=True)
+               **hold_flash(name, q, k, v, **kw)}
+        held[res["kernel"]] += 1
+        sdpa = sdpa_call(q, k, v, **kw)
         plain = kernel_times(lambda: mha_ref(q, k, v, **kw), iters=5)
         lib = kernel_times(sdpa)
         t = kernel_times(lambda: flash_attention(q, k, v, **kw),
@@ -2528,6 +2595,341 @@ def phase_lm_serve(seed: int, n_layers: int, decode_steps: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the other LM families' prefill + decode on the card
+# ---------------------------------------------------------------------------
+
+LM_FAMILIES = (
+    # arch, layers on the card (None: full depth), requests, prompt
+    # tokens, decode steps.  mixtral-8x22b (56 layers of ~5.0 GB) and
+    # qwen2-vl-72b (80 of ~1.76 GB, 5.0 GB of embedding and head) do not
+    # fit in 80 GB: each runs the most layers that leave ~15 GB for the
+    # activations, the torch-backend twin's prefill and the caches
+    # (PERF.md, section 4)
+    ("granite-moe-3b-a800m", None, 2, 2048, 16),
+    ("mixtral-8x22b", 12, 1, 8192, 8),
+    ("qwen2-vl-72b", 32, 2, 2048, 16),
+    ("seamless-m4t-medium", None, 2, 2048, 16),
+    ("zamba2-1.2b", None, 2, 2048, 16),
+    ("xlstm-125m", None, 2, 2048, 16),
+)
+VLM_GRID = 32                  # the image prefix: one frame of 32 x 32 patches
+LM_BAR = dict(atol=0.15, rtol=0.1)
+# The hybrid and SSM configs' stepwise decode and their prefill differ
+# past LM_BAR in the JAX package itself at full depth (the prefill's
+# causal convs round in bf16, the decode's sum in float32, the chunked
+# scans sum in other orders, over 38 / 12 bf16 layers): relative L2 up to
+# 0.053 (zamba2) and 0.125 (xlstm) at positions 0-3
+# (tests/test_torch_full_depth.py), while in float32 they agree to 1e-4.
+# Their stepwise checks are held at a relative L2 bar that the sound
+# decode stays under and each planted fault of `STEPWISE_FAULTS` passes.
+STEPWISE_REL_L2 = {"zamba2-1.2b": 0.12, "xlstm-125m": 0.25}
+# Faulty decodes driven through the same entry points, each of which the
+# stepwise check must catch: the state is not carried from step to step
+# (every step starts from the zero state), or the decode reads the
+# prompt one token ahead.  Position 0 is the same under the first.
+STEPWISE_FAULTS = ("state_not_carried", "one_token_ahead")
+
+
+def flash_launches(cfg) -> int:
+    """Self-attentions a prefill runs: one a layer (dense, MoE, VLM), one
+    an encoder and a decoder layer (enc-dec; cross-attention runs the
+    plain walk), one a shared-block application (hybrid), none (SSM)."""
+    if cfg.family == "encdec":
+        return cfg.enc_layers + cfg.n_layers
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    if cfg.family == "ssm":
+        return 0
+    return cfg.n_layers
+
+
+def self_attention_shapes(cfg, B: int, S: int) -> list:
+    """(label, B, H, KH, S, dh, causal, window) of each distinct
+    self-attention a prefill of B x S tokens runs through the kernel: the
+    encoder's over S / enc_seq_div frames, non-causal (enc-dec); none
+    (SSM)."""
+    if cfg.family == "ssm":
+        return []
+    heads = (B, cfg.n_heads, cfg.n_kv_heads)
+    if cfg.family == "encdec":
+        return [("encoder", *heads, S // cfg.enc_seq_div, cfg.head_dim,
+                 False, cfg.window),
+                ("decoder", *heads, S, cfg.head_dim, True, cfg.window)]
+    return [("self", *heads, S, cfg.head_dim, True, cfg.window)]
+
+
+def family_flash(cfg, B: int, S: int, seed: int) -> dict:
+    """The kernel at each of the config's self-attention shapes, on seeded
+    inputs laid out as the model passes them: held by `hold_flash` against
+    both twins, then timed (CUDA events) beside SDPA and its bound."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    for label, B, H, KH, S, dh, causal, window in self_attention_shapes(
+            cfg, B, S):
+        q, k, v = flash_inputs(B, H, KH, S, dh, "bfloat16", True, gen)
+        kw = dict(causal=causal, window=window)
+        res = {"shape": [B, H, KH, S, dh], "causal": causal,
+               "window": window,
+               **hold_flash(f"{cfg.name}:{label}", q, k, v, **kw)}
+        t = kernel_times(lambda: flash_attention(q, k, v, **kw),
+                         one_launch=True)
+        lib = kernel_times(sdpa_call(q, k, v, **kw))
+        bnd = flash_bound(B, H, KH, S, dh, "bfloat16", causal, window)
+        res.update(ms=t["wall_ms"], timing="events",
+                   library_ms=lib["wall_ms"], bound_ms=bnd["bound_ms"],
+                   bound_by=bnd["bound_by"])
+        out[label] = res
+        del q, k, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def vlm_positions(B: int, S: int, n_img: int, grid_w: int, dev):
+    """M-RoPE (t, h, w) positions (B, S, 3): the image prefix on a grid of
+    one frame, `grid_w` wide, the text after it at max + 1 + i."""
+    import torch
+    i = torch.arange(S, device=dev)
+    img = i < n_img
+    start = max((n_img - 1) // grid_w, min(n_img, grid_w) - 1) + 1
+    text = start + i - n_img
+    pos = torch.stack([torch.where(img, 0, text),
+                       torch.where(img, i // grid_w, text),
+                       torch.where(img, i % grid_w, text)], dim=-1)
+    return pos.to(torch.int32)[None].expand(B, S, 3).contiguous()
+
+
+def family_batch(cfg, B: int, S: int, gen, dev) -> dict:
+    """Seeded tokens, and the family's inputs: M-RoPE positions and image
+    embeddings (VLM), S / enc_seq_div encoder frames (enc-dec)."""
+    import torch
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                     device=dev)}
+
+    def emb(n):
+        return (torch.randn(B, n, cfg.d_model, generator=gen, device=dev)
+                * 0.02).to(torch.bfloat16)
+
+    if cfg.family == "vlm":
+        batch["positions"] = vlm_positions(B, S, cfg.n_image_tokens,
+                                           VLM_GRID, dev)
+        batch["image_embeds"] = emb(cfg.n_image_tokens)
+    if cfg.family == "encdec":
+        batch["enc_embeds"] = emb(S // cfg.enc_seq_div)
+    return batch
+
+
+def _bar(a, b) -> dict:
+    import torch
+    a, b = a.float(), b.float()
+    return {"max_abs": (a - b).abs().max().item(),
+            "rel_l2": ((a - b).norm() / b.norm()).item(),
+            "within": bool(torch.allclose(a, b, **LM_BAR))}
+
+
+def faulty_decode(decode, params, cfg, batch, steps: int, fault: str,
+                  dev) -> list:
+    """Last-position logits of `steps` decode steps over the prompt from
+    the zero state, with one of `STEPWISE_FAULTS` planted through the
+    entry points: `state_not_carried` gives every step a fresh zero
+    state, `one_token_ahead` feeds step i the prompt's token i + 1."""
+    from repro_torch.models.transformer import init_decode_state
+    B = batch["tokens"].shape[0]
+    state, out = init_decode_state(cfg, steps, B, device=dev), []
+    for i in range(steps):
+        if fault == "state_not_carried":
+            state = init_decode_state(cfg, steps, B, device=dev)
+        t = i + 1 if fault == "one_token_ahead" else i
+        lg, state = decode(params, {"tokens": batch["tokens"][:, t:t + 1],
+                                    "cur_len": i}, state)
+        out.append(lg[:, 0])
+    return out
+
+
+def phase_lm_family(arch: str, n_layers, B: int, S: int, steps: int,
+                    seed: int) -> dict:
+    """One config at its published widths on seeded random bf16 weights.
+    First the flash kernel alone at each of its self-attention shapes,
+    held against both twins (`family_flash`).  Then a prefill through the
+    kernel (counts reset just before and read just after; exactly
+    `flash_launches(cfg)` bf16 launches and nothing else), held against
+    the plain-torch attention backend at the reference's bf16 bar with
+    equal greedy first tokens; then decode steps: greedy from the
+    prefill's caches (KV families), or from the zero state over the
+    prompt's first tokens, each held against the prefill's logits at its
+    position, and each of `STEPWISE_FAULTS` shown to fail that check
+    (hybrid, SSM: the reference's prefill hands no recurrent state to
+    decode)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models.transformer import (forward, init_decode_state,
+                                                init_model, param_bytes)
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    cfg = get_arch(arch)
+    full_layers = cfg.n_layers
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    want_flash = flash_launches(cfg)
+    fam, dev = cfg.family, torch.device(DEVICE)
+    recurrent = fam in ("hybrid", "ssm")
+    T = steps if recurrent else S + steps
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t
+
+    kernel_at_shapes = family_flash(cfg, B, S, seed + 2)
+    params, init_s = timed(lambda: init_model(cfg, seed=seed, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    batch = family_batch(cfg, B, S, gen, dev)
+    prefill = make_prefill_step(cfg, ShapeConfig(f"{arch}_prefill", S, B,
+                                                 "prefill"), device=dev)
+    decode = make_decode_step(cfg, ShapeConfig(f"{arch}_decode", T, B,
+                                               "decode"), device=dev)
+    warm_s = timed(lambda: prefill(params, batch))[1]
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    (last, caches), prefill_s = timed(lambda: prefill(params, batch))
+    launches = dict(cuda_lib.LAUNCHES)
+    check(launches["flash_attention_tc"] == want_flash
+          and sum(launches.values()) == want_flash,
+          f"{arch}: launches a prefill {launches}, expected "
+          f"{want_flash} flash_attention_tc and nothing else")
+    check(last.shape == (B, 1, cfg.vocab_padded)
+          and bool(torch.isfinite(last.float()).all()),
+          f"{arch}: prefill logits {tuple(last.shape)} or not finite")
+    first = last[:, 0].argmax(-1)
+
+    twin = make_prefill_step(cfg, ShapeConfig(f"{arch}_prefill", S, B,
+                                              "prefill"), device=dev,
+                             backend="torch")
+    (t_last, t_caches), twin_s = timed(lambda: twin(params, batch))
+    del t_caches
+    vs_twin = _bar(last[:, 0], t_last[:, 0])
+    tw = t_last[:, 0].float()
+    # the twin's logit at its own greedy token less at the kernel's: 0
+    # when they agree; random weights leave near-ties among the top
+    # logits, so a differing token must be a tie at the bar's atol
+    gap = tw.max(-1).values - tw.gather(-1, first[:, None])[:, 0]
+    vs_twin.update(same_greedy_first_token=bool(
+        torch.equal(first, tw.argmax(-1))), greedy_gap=gap.tolist())
+    check(vs_twin["within"], f"{arch}: kernel and torch-backend prefill "
+                             f"logits differ past atol 0.15 / rtol 0.1 "
+                             f"({vs_twin})")
+    check(bool((gap <= LM_BAR["atol"]).all()),
+          f"{arch}: greedy first tokens differ by more than a tie at "
+          f"atol 0.15 ({vs_twin})")
+
+    state = init_decode_state(cfg, T, B, device=dev)
+    if not recurrent:
+        for kv in ("k", "v"):
+            state[kv][:, :, :, :S] = caches[kv]
+        if fam == "encdec":      # the prefill's frames, all of them
+            state["cross_k"] = caches["cross_k"]
+            state["cross_v"] = caches["cross_v"]
+    del caches
+    state_bytes = param_bytes(state)
+    nxt = first
+    step_s, generated = [], []
+    for i in range(steps):
+        cur = i if recurrent else S + i
+        tok = batch["tokens"][:, i] if recurrent else nxt
+        db = {"tokens": tok[:, None], "cur_len": cur}
+        if fam == "vlm":
+            db["positions"] = vlm_positions(B, cur + 1, cfg.n_image_tokens,
+                                            VLM_GRID, dev)[:, cur:cur + 1]
+        (lg, state), s = timed(lambda: decode(params, db, state))
+        check(bool(torch.isfinite(lg.float()).all()),
+              f"{arch}: non-finite logits at decode step {i}")
+        nxt = lg[:, 0].argmax(-1)
+        generated.append(lg[:, 0] if recurrent else nxt)
+        step_s.append(s)
+    stepwise, faults = None, None
+    if recurrent:
+        full = forward(params, cfg, batch)[0][:, :steps].clone()
+        stepwise = [_bar(lg, full[:, i]) for i, lg in enumerate(generated)]
+        generated = [lg.argmax(-1) for lg in generated]
+        faults = {f: [_bar(lg, full[:, i]) for i, lg in enumerate(
+            faulty_decode(decode, params, cfg, batch, steps, f, dev))]
+            for f in STEPWISE_FAULTS}
+        del full
+        bar = STEPWISE_REL_L2[arch]
+        worst = max(r["rel_l2"] for r in stepwise)
+        caught = {f: max(r["rel_l2"] for r in rs) for f, rs in
+                  faults.items()}
+        print(json.dumps({"stepwise": arch, "bar": bar, "sound": [
+            r["rel_l2"] for r in stepwise], "faults": {
+            f: [r["rel_l2"] for r in rs] for f, rs in faults.items()}}),
+            flush=True)
+        check(worst <= bar, f"{arch}: a decode step differs from the "
+                            f"prefill's logits at its position past "
+                            f"relative L2 {bar} ({stepwise})")
+        check(all(w > bar for w in caught.values()),
+              f"{arch}: a planted decode fault stays within relative L2 "
+              f"{bar} ({caught}): the check cannot tell it from a sound "
+              f"decode")
+    peak = torch.cuda.max_memory_allocated()
+    decode_prof = profile_batch(lambda: decode(params, db, state))
+    del state
+    prefill_prof = profile_batch(lambda: prefill(params, batch))
+    drop = None
+    if fam == "moe":
+        drop = forward(params, cfg, batch)[1]["moe_drop_frac"].item()
+    decode_s = sum(step_s)
+    res = {"phase": "lm_families", "arch": arch, "family": fam,
+           "n_layers": cfg.n_layers, "published_layers": full_layers,
+           "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+           "head_dim": cfg.head_dim, "window": cfg.window,
+           "vocab_padded": cfg.vocab_padded, "requests": B,
+           "prompt_tokens": S, "decode_steps": steps,
+           "decode_from": "zero state over the prompt" if recurrent
+           else "prefill caches",
+           "param_count": cfg.param_count(),
+           "weight_bytes": param_bytes(params),
+           "decode_state_bytes": state_bytes,
+           "peak_device_bytes": int(peak), "init_s": init_s,
+           "warmup_prefill_s": warm_s, "prefill_s": prefill_s,
+           "prefill_tokens_per_s": B * S / prefill_s,
+           "torch_backend_prefill_s": twin_s,
+           "decode_s_per_step": decode_s / steps, "decode_step_s": step_s,
+           "moe_drop_frac": drop, "launches": launches,
+           "vs_torch_backend": {**vs_twin, **LM_BAR},
+           "stepwise_vs_prefill": stepwise,
+           "stepwise_rel_l2_bar": STEPWISE_REL_L2.get(arch),
+           "stepwise_faults": faults,
+           "kernel_at_shapes": kernel_at_shapes,
+           "prefill_profile": prefill_prof, "decode_profile": decode_prof,
+           "greedy_first_tokens": first.tolist(),
+           "greedy_tokens": torch.stack(generated, 1).tolist()}
+    emit(res)
+    del params, batch, last, t_last
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_lm_families(seed: int, only=None) -> dict:
+    """Each config of `LM_FAMILIES` (or the names in `only`) one after
+    another, each freed before the next; returns the flash launches of
+    each config's counted prefill."""
+    out = {}
+    for arch, layers, B, S, steps in LM_FAMILIES:
+        if only and arch not in only:
+            continue
+        out[arch] = phase_lm_family(arch, layers, B, S, steps, seed)
+    return {"launches": {a: r["launches"] for a, r in out.items()},
+            "kernel_at_shapes": {a: r["kernel_at_shapes"]
+                                 for a, r in out.items()}}
+
+
+# ---------------------------------------------------------------------------
 
 
 KERNEL_ROWS = (
@@ -2568,6 +2970,9 @@ def main(argv=None) -> int:
                     help="shard Databases of the router phase")
     ap.add_argument("--pipeline-docs", type=int, default=250_000,
                     help="documents of the pipeline phase's corpus")
+    ap.add_argument("--lm-families", default=None,
+                    help="comma-separated configs of the lm_families "
+                         "phase (default: all six)")
     args = ap.parse_args(argv)
 
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -2619,6 +3024,8 @@ def main(argv=None) -> int:
     pipeline_res = phase_pipeline(args.pipeline_docs, args.seed)
     flash = phase_kernels_flash(args.seed)
     lm = phase_lm_serve(args.seed, args.lm_layers, args.decode_steps)
+    families = phase_lm_families(
+        args.seed, args.lm_families.split(",") if args.lm_families else None)
 
     rows = []
     for name, source, replaces in KERNEL_ROWS:
@@ -2655,6 +3062,8 @@ def main(argv=None) -> int:
         row["distributed_launches"] = dist_res["launches"][name]
         row["router_launches"] = router_res["launches"][name]
         row["pipeline_launches"] = pipeline_res["launches"][name]
+        row["lm_families_launches"] = {
+            arch: n[name] for arch, n in families["launches"].items()}
         if name in ("window_filter", "window_match", "sfc_encode"):
             check(row["store_launches"] > 0 and row["serving_launches"] > 0,
                   f"{name} was not launched by the store or the server")
@@ -2667,6 +3076,18 @@ def main(argv=None) -> int:
             check(row["router_launches"] > 0
                   and row["pipeline_launches"] > 0,
                   f"{name} was not launched by the router or the pipeline")
+        if name == "flash_attention_tc":
+            check(all(n > 0 for arch, n in
+                      row["lm_families_launches"].items()
+                      if arch != "xlstm-125m"),
+                  f"{name} was not launched by every attention family")
+        if name == "flash_attention_tc":
+            row["lm_families_shapes"] = {
+                arch: {label: {key: r[key] for key in (
+                    "shape", "causal", "window", "max_abs_err",
+                    "tc_twin_max_abs_err", "ms", "bound_ms", "library_ms")}
+                    for label, r in shapes.items()}
+                for arch, shapes in families["kernel_at_shapes"].items()}
         if off_path:
             row["held_launches"] = flash["held_launches"][name]
         rows.append(row)

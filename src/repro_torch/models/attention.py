@@ -3,8 +3,10 @@ cross-attention.  Two backends for the full-sequence path, as `core/serve`
 names them: ``"cuda"`` (the default) runs the hand-written flash attention
 kernel (`kernels/flash_attention`), ``"torch"`` the blocked "triangular"
 online-softmax walk in plain torch (the twin of the reference's XLA path:
-per q chunk, exactly the kv chunks it can see).  Decode attention over a
-cache is plain torch, as the reference leaves it to XLA.
+per q chunk, exactly the kv chunks it can see).  Cross-attention (q and kv
+of different lengths, which no kernel takes) and decode attention over a
+cache are plain torch on either backend, as the reference leaves them to
+XLA.
 """
 from __future__ import annotations
 
@@ -182,13 +184,22 @@ def attn_kv_only(p, cfg, x):
 
 
 def attention_layer(p, cfg, x, positions, *, causal=True, backend="cuda",
-                    return_kv=False):
+                    kv_override=None, return_kv=False):
     """Full layer: qkv -> blocked attention -> output proj.
     return_kv: also return (k, v) as (B, KH, S, dh) for KV-cache building.
-    (The reference's cross-attention `kv_override` comes with the enc-dec
-    family.)"""
+
+    kv_override: (k, v) (B, Se, KH, dh) from an encoder, for
+    cross-attention: non-causal, no rotary, and always the plain blocked
+    walk (``backend="torch"``), whatever `backend` says.  The flash
+    kernel, like the TPU kernel it ports, takes one length for q and kv,
+    and cross-attention's Se differs from S."""
     B, S, D = x.shape
-    q, k, v = attn_qkv(p, cfg, x, positions)
+    if kv_override is not None:
+        q = attn_q_only(p, cfg, x)
+        k, v = kv_override
+        causal, backend = False, "torch"
+    else:
+        q, k, v = attn_qkv(p, cfg, x, positions)
     o = blocked_attention(q, k, v, causal=causal, window=cfg.window,
                           q_chunk=cfg.attn_chunk, kv_chunk=cfg.attn_chunk,
                           backend=backend)

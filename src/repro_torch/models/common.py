@@ -82,6 +82,17 @@ def head_rms_norm(x, w, eps=1e-6):
     return rms_norm(x, w, eps)
 
 
+def silu(x):
+    """``jax.nn.silu`` as XLA evaluates it, ``x · (1 / (1 + exp(−x)))``,
+    each step rounded to x's dtype (in bf16, `F.silu` rounds once and
+    differs in most elements).  Five elementwise passes where `F.silu`
+    takes one, so only the recurrent blocks (mamba2, xLSTM) use it, on
+    their narrow per-layer tensors, where it keeps the full-depth decode
+    as close to the reference's as the reference's own drift; the FFNs'
+    (tokens, d_ff) activations take `F.silu`."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
 ACTS = {
     "silu": F.silu,
     # jax.nn.gelu defaults to the tanh approximation

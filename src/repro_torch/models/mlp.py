@@ -2,8 +2,6 @@
 squared-ReLU (nemotron/minitron)."""
 from __future__ import annotations
 
-import torch.nn.functional as F
-
 from .common import ACTS, dense
 
 
@@ -17,6 +15,6 @@ def init_mlp(gen, cfg) -> dict:
 
 def mlp(p, cfg, x):
     if cfg.mlp_kind == "swiglu":
-        return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+        return (ACTS["silu"](x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
     act = ACTS[cfg.mlp_kind]
     return act(x @ p["w_in"]) @ p["w_out"]

@@ -1,31 +1,43 @@
-"""Model composition, dense family (qwen3-4b, yi-6b, minitron-8b,
-granite-34b: one block, differing in MLP kind and head counts).
+"""Model composition for every family of `configs/registry.py`: dense / MoE
+/ VLM decoder stacks, xLSTM stacks, zamba2 hybrid (mamba2 + shared
+attention), enc-dec.
 
-Layers are stacked on a leading axis, as the reference's `stack_init`
-makes them, and applied by a Python loop over that axis (the reference's
-``lax.scan``).  The other families raise `NotImplementedError`: their
-slices are queued in ROADMAP.md (Queue 1 item 8, "The remaining LM
-families").  Training (`lm_loss`, remat) belongs to the training slice.
+Homogeneous stacks are stacked on a leading layer axis, as the
+reference's `stack_init` makes them, and applied by a Python loop over
+that axis (the reference's ``lax.scan``); xLSTM's heterogeneous layers
+are named ``l{i}m`` / ``l{i}s`` and run in depth order.  Self-attention
+in prefill takes `backend` (``"cuda"``: the flash kernel); cross-attention
+and decode attention are plain torch on either backend.
+
+As in the reference, the hybrid and SSM prefills return no recurrent
+state (only the shared block's k/v, or nothing): decode starts from
+`init_decode_state`.  Training (`lm_loss`, remat) belongs to the training
+slice.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from ..core.device import resolve_device
-from .attention import attn_qkv, attention_layer, decode_attention
-from .attention import init_attention
+from .attention import (attn_kv_only, attn_q_only, attn_qkv,
+                        attention_layer, decode_attention, init_attention)
 from .common import dense, layer_slice, rms_norm, stack_init
+from .mamba2 import init_mamba2, mamba2_decode_step, mamba2_forward
+from .mamba2 import mamba2_init_state
 from .mlp import init_mlp, mlp
+from .moe import init_moe, moe_apply, xla_mean
+from .xlstm import (init_mlstm_block, init_slstm_block, mlstm_block,
+                    mlstm_block_decode, mlstm_block_init_state, slstm_block,
+                    slstm_block_decode, slstm_init_state)
 
-FAMILIES = ("dense",)
 
-
-def check_family(cfg) -> None:
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet; the "
-            f"port has the dense family (ROADMAP.md Queue 1 item 8, "
-            f"'The remaining LM families')")
+def ssm_layer_names(cfg) -> list:
+    """xLSTM's layers in depth order: ``l{i}s`` for the sLSTM layers,
+    ``l{i}m`` for the mLSTM ones (the reference's param names)."""
+    return [f"l{i}{'s' if i in cfg.slstm_layers else 'm'}"
+            for i in range(cfg.n_layers)]
 
 
 # ---------------------------------------------------------------------------
@@ -33,30 +45,64 @@ def check_family(cfg) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _init_dense_block(gen, cfg) -> dict:
-    ones = lambda: torch.ones(cfg.d_model, dtype=torch.bfloat16,
-                              device=gen.device)
-    return {"ln1": ones(), "attn": init_attention(gen, cfg), "ln2": ones(),
-            "mlp": init_mlp(gen, cfg)}
+def _ones(gen, cfg):
+    return torch.ones(cfg.d_model, dtype=torch.bfloat16, device=gen.device)
+
+
+def _init_dense_block(gen, cfg, cross: bool = False) -> dict:
+    p = {"ln1": _ones(gen, cfg), "attn": init_attention(gen, cfg)}
+    if cross:
+        p["ln_x"] = _ones(gen, cfg)
+        p["xattn"] = init_attention(gen, cfg)
+    p["ln2"] = _ones(gen, cfg)
+    if cfg.family == "moe" and not cross:
+        p["moe"] = init_moe(gen, cfg)
+    else:
+        p["mlp"] = init_mlp(gen, cfg)
+    return p
 
 
 def init_model(cfg, *, seed: int = 0, device=None) -> dict:
-    """Seeded random parameters at the reference's shapes and scales: one
-    `torch.Generator` on `device` (CUDA unless the caller asks for the CPU)
-    draws every tensor in float32, one tensor at a time, each cast to bf16
-    at once.  The numbers differ from the reference's `jax.random` ones;
+    """Seeded random parameters at the reference's shapes, dtypes and
+    scales: one `torch.Generator` on `device` (CUDA unless the caller asks
+    for the CPU) draws every tensor in float32, one tensor at a time, each
+    cast at once (bf16, or float32 for mamba2's `A_log`, `dt_bias` and
+    `D_skip`).  The numbers differ from the reference's `jax.random` ones;
     to compare the two, carry the reference's tree across with
     `core.convert.lm_params_from_numpy`."""
-    check_family(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     Vp, D = cfg.vocab_padded, cfg.d_model
     p = {"embed": dense(gen, Vp, D, scale=0.02),
-         "final_norm": torch.ones(D, dtype=torch.bfloat16, device=dev)}
+         "final_norm": _ones(gen, cfg)}
     if not cfg.tie_embeddings:
         p["head"] = dense(gen, D, Vp, scale=0.02)
-    p["blocks"] = stack_init(lambda: _init_dense_block(gen, cfg),
-                             cfg.n_layers)
+    fam = cfg.family
+    if fam in ("dense", "moe", "vlm"):
+        p["blocks"] = stack_init(lambda: _init_dense_block(gen, cfg),
+                                 cfg.n_layers)
+    elif fam == "ssm":
+        layers = {}
+        for name in ssm_layer_names(cfg):
+            init = init_slstm_block if name.endswith("s") else \
+                init_mlstm_block
+            layers[name] = {**init(gen, cfg), "ln": _ones(gen, cfg)}
+        p["layers"] = layers
+    elif fam == "hybrid":
+        p["mamba"] = stack_init(
+            lambda: {**init_mamba2(gen, cfg), "ln": _ones(gen, cfg)},
+            cfg.n_layers)
+        # zamba2's shared block is a plain dense attn+mlp block
+        p["shared_attn"] = _init_dense_block(
+            gen, dataclasses.replace(cfg, family="dense"))
+    elif fam == "encdec":
+        p["enc_blocks"] = stack_init(lambda: _init_dense_block(gen, cfg),
+                                     cfg.enc_layers)
+        p["dec_blocks"] = stack_init(
+            lambda: _init_dense_block(gen, cfg, cross=True), cfg.n_layers)
+        p["enc_norm"] = _ones(gen, cfg)
+    else:
+        raise ValueError(fam)
     return p
 
 
@@ -71,15 +117,25 @@ def param_bytes(params: dict) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _dense_block(lp, cfg, h, positions, *, backend="cuda", want_kv=False):
+def _dense_block(lp, cfg, h, positions, *, causal=True, backend="cuda",
+                 enc_kv=None, want_kv=False):
+    """Returns (h, moe drop fraction or None, (k, v) or ())."""
     attn_out = attention_layer(lp["attn"], cfg, rms_norm(h, lp["ln1"]),
-                               positions, backend=backend, return_kv=want_kv)
+                               positions, causal=causal, backend=backend,
+                               return_kv=want_kv)
     kv = ()
     if want_kv:
         attn_out, kv = attn_out
     h = h + attn_out
-    h = h + mlp(lp["mlp"], cfg, rms_norm(h, lp["ln2"]))
-    return h, kv
+    if enc_kv is not None:
+        h = h + attention_layer(lp["xattn"], cfg, rms_norm(h, lp["ln_x"]),
+                                positions, kv_override=enc_kv,
+                                backend=backend)
+    hn = rms_norm(h, lp["ln2"])
+    if "moe" in lp:
+        y, drop = moe_apply(lp["moe"], cfg, hn)
+        return h + y, drop, kv
+    return h + mlp(lp["mlp"], cfg, hn), None, kv
 
 
 def _positions_1d(B, S, device):
@@ -93,36 +149,95 @@ def _logits(params, cfg, h):
     return h @ head
 
 
+def _store_kv(caches: dict, n: int, i: int, kv,
+              names=("k", "v")) -> None:
+    """Write layer `i`'s (B, KH, S, dh) k and v into (n, B, KH, S, dh)
+    caches under `names`, allocated at the first write in k's dtype."""
+    for name, t in zip(names, kv):
+        if name not in caches:
+            caches[name] = t.new_empty((n,) + tuple(t.shape))
+        caches[name][i].copy_(t)
+
+
 # ---------------------------------------------------------------------------
 # forward (prefill)
 # ---------------------------------------------------------------------------
 
 
 def forward(params, cfg, batch, *, backend="cuda", want_cache=False):
-    """batch: tokens (B,S) [+ positions].  Returns (logits (B, S, Vp),
-    aux_dict, caches | None); caches k/v are (L, B, KH, S, dh), written
-    layer by layer into one preallocated tensor each."""
-    check_family(cfg)
+    """batch: tokens (B,S) [+ positions (B,S) or (B,S,3) / image_embeds
+    (B, n_image_tokens, D) / enc_embeds (B, Se, D)].  Returns (logits
+    (B, S, Vp), aux_dict, caches | None); caches k/v are (L, B, KH, S, dh)
+    (enc-dec adds cross_k/cross_v (L, B, KH, Se, dh); the hybrid family
+    has one k/v a shared-block application; the SSM family none), written
+    layer by layer into one tensor each, allocated at the first layer."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     h = params["embed"][tokens].to(torch.bfloat16)
     positions = batch.get("positions")
     if positions is None:
         positions = _positions_1d(B, S, tokens.device)
-    blocks = params["blocks"]
-    L = cfg.n_layers
-    caches = None
-    if want_cache:
-        shape = (L, B, cfg.n_kv_heads, S, cfg.head_dim)
-        caches = {"k": torch.empty(shape, dtype=h.dtype, device=h.device),
-                  "v": torch.empty(shape, dtype=h.dtype, device=h.device)}
-    for i in range(L):
-        h, kv = _dense_block(layer_slice(blocks, i), cfg, h, positions,
-                             backend=backend, want_kv=want_cache)
-        if want_cache:
-            caches["k"][i].copy_(kv[0])
-            caches["v"][i].copy_(kv[1])
+    if cfg.family == "vlm":
+        img = batch["image_embeds"].to(h.dtype)
+        h = torch.cat([img, h[:, cfg.n_image_tokens:]], dim=1)
     aux = {"moe_drop_frac": torch.zeros((), device=h.device)}
+    caches = {} if want_cache else None
+    fam = cfg.family
+
+    if fam in ("dense", "moe", "vlm"):
+        drops = []
+        for i in range(cfg.n_layers):
+            h, drop, kv = _dense_block(layer_slice(params["blocks"], i), cfg,
+                                       h, positions, backend=backend,
+                                       want_kv=want_cache)
+            if drop is not None:
+                drops.append(drop)
+            if want_cache:
+                _store_kv(caches, cfg.n_layers, i, kv)
+        if drops:
+            aux["moe_drop_frac"] = xla_mean(torch.stack(drops))
+    elif fam == "ssm":
+        for name in ssm_layer_names(cfg):
+            lp = params["layers"][name]
+            block = slstm_block if name.endswith("s") else mlstm_block
+            h = h + block(lp, cfg, rms_norm(h, lp["ln"]))
+    elif fam == "hybrid":
+        period, L = cfg.attn_every, cfg.n_layers
+        n_groups = L // period
+
+        def mamba_layers(lo, hi, h):
+            for i in range(lo, hi):
+                lp = layer_slice(params["mamba"], i)
+                h = h + mamba2_forward(lp, cfg, rms_norm(h, lp["ln"]))
+            return h
+
+        for gi in range(n_groups):
+            h = mamba_layers(gi * period, (gi + 1) * period, h)
+            h, _, kv = _dense_block(params["shared_attn"], cfg, h, positions,
+                                    backend=backend, want_kv=want_cache)
+            if want_cache:
+                _store_kv(caches, n_groups, gi, kv)
+        h = mamba_layers(n_groups * period, L, h)
+    elif fam == "encdec":
+        enc_h = batch["enc_embeds"].to(h.dtype)
+        enc_pos = _positions_1d(B, enc_h.shape[1], h.device)
+        for i in range(cfg.enc_layers):
+            enc_h, _, _ = _dense_block(layer_slice(params["enc_blocks"], i),
+                                       cfg, enc_h, enc_pos, causal=False,
+                                       backend=backend)
+        enc_h = rms_norm(enc_h, params["enc_norm"])
+        for i in range(cfg.n_layers):
+            lp = layer_slice(params["dec_blocks"], i)
+            ek, ev = attn_kv_only(lp["xattn"], cfg, enc_h)
+            h, _, kv = _dense_block(lp, cfg, h, positions, backend=backend,
+                                    enc_kv=(ek, ev), want_kv=want_cache)
+            if want_cache:
+                _store_kv(caches, cfg.n_layers, i, kv)
+                _store_kv(caches, cfg.n_layers, i,
+                          (ek.transpose(1, 2), ev.transpose(1, 2)),
+                          ("cross_k", "cross_v"))
+    else:
+        raise ValueError(fam)
     return _logits(params, cfg, h), aux, caches
 
 
@@ -132,24 +247,53 @@ def forward(params, cfg, batch, *, backend="cuda", want_cache=False):
 
 
 def init_decode_state(cfg, seq_len: int, batch: int, device=None) -> dict:
-    """Zero KV caches (L, B, KH, seq_len, dh) bf16 on `device` (CUDA unless
-    the caller asks for the CPU)."""
-    check_family(cfg)
+    """Zero decode state on `device` (CUDA unless the caller asks for the
+    CPU), as the reference's: KV caches (L, B, KH, seq_len, dh) bf16
+    (hybrid: one a shared-block application, with the mamba layers'
+    stacked SSM and conv states; enc-dec: also cross caches of seq_len //
+    enc_seq_div frames), or xLSTM's per-layer recurrent states."""
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, seq_len, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-            "v": torch.zeros(shape, dtype=torch.bfloat16, device=dev)}
+    fam = cfg.family
+
+    def kv(n, S):
+        return torch.zeros((n, batch, cfg.n_kv_heads, S, cfg.head_dim),
+                           dtype=torch.bfloat16, device=dev)
+
+    if fam in ("dense", "moe", "vlm"):
+        return {"k": kv(cfg.n_layers, seq_len), "v": kv(cfg.n_layers, seq_len)}
+    if fam == "ssm":
+        return {name: (slstm_init_state if name.endswith("s")
+                       else mlstm_block_init_state)(cfg, batch, dev)
+                for name in ssm_layer_names(cfg)}
+    if fam == "hybrid":
+        n_apps = cfg.n_layers // cfg.attn_every
+        per = mamba2_init_state(cfg, batch, dev)
+        return {"mamba": {k: v[None].repeat((cfg.n_layers,) + (1,) * v.dim())
+                          for k, v in per.items()},
+                "k": kv(n_apps, seq_len), "v": kv(n_apps, seq_len)}
+    if fam == "encdec":
+        Se = seq_len // cfg.enc_seq_div
+        return {"k": kv(cfg.n_layers, seq_len),
+                "v": kv(cfg.n_layers, seq_len),
+                "cross_k": kv(cfg.n_layers, Se),
+                "cross_v": kv(cfg.n_layers, Se)}
+    raise ValueError(fam)
+
+
+def _write(state: dict, new: dict) -> None:
+    for k, v in new.items():
+        state[k].copy_(v)
 
 
 def decode_step(params, cfg, batch, state):
     """One decode step.  batch: tokens (B,1), cur_len int or int32 scalar
     (number of already-cached positions; the new token is written at index
-    cur_len).  Returns (logits (B,1,Vp), new_state).
+    cur_len) [+ positions (B,1) or (B,1,3)].  Returns (logits (B,1,Vp),
+    new_state).
 
-    Unlike the reference (`dynamic_update_slice` on a donated state), the
-    caches are updated in place: `new_state` is `state`, its k/v written
-    at ``cur_len`` by `index_copy_`."""
-    check_family(cfg)
+    Unlike the reference (a new state from a donated one), the state is
+    updated in place: `new_state` is `state`, its caches written at
+    ``cur_len`` by `index_copy_` and its recurrent states overwritten."""
     tokens = batch["tokens"]
     B = tokens.shape[0]
     cur = torch.as_tensor(batch["cur_len"], dtype=torch.int64,
@@ -159,14 +303,63 @@ def decode_step(params, cfg, batch, state):
     if positions is None:
         positions = cur.to(torch.int32).expand(B, 1)
     idx = cur.reshape(1)
-    for i in range(cfg.n_layers):
-        lp = layer_slice(params["blocks"], i)
-        kc, vc = state["k"][i], state["v"][i]
+    fam = cfg.family
+
+    def attn_decode(lp, h, kc, vc):
         q, k, v = attn_qkv(lp["attn"], cfg, rms_norm(h, lp["ln1"]),
                            positions)
         kc.index_copy_(2, idx, k.transpose(1, 2).to(kc.dtype))
         vc.index_copy_(2, idx, v.transpose(1, 2).to(vc.dtype))
         o = decode_attention(q, kc, vc, cur + 1, window=cfg.window)
-        h = h + o.reshape(B, 1, -1) @ lp["attn"]["wo"]
-        h = h + mlp(lp["mlp"], cfg, rms_norm(h, lp["ln2"]))
+        return h + o.reshape(B, 1, -1) @ lp["attn"]["wo"]
+
+    def ffn_decode(lp, h):
+        hn = rms_norm(h, lp["ln2"])
+        if "moe" in lp:
+            return h + moe_apply(lp["moe"], cfg, hn)[0]
+        return h + mlp(lp["mlp"], cfg, hn)
+
+    if fam in ("dense", "moe", "vlm"):
+        for i in range(cfg.n_layers):
+            lp = layer_slice(params["blocks"], i)
+            h = ffn_decode(lp, attn_decode(lp, h, state["k"][i],
+                                           state["v"][i]))
+    elif fam == "ssm":
+        for name in ssm_layer_names(cfg):
+            lp = params["layers"][name]
+            step = slstm_block_decode if name.endswith("s") else \
+                mlstm_block_decode
+            y, new = step(lp, cfg, rms_norm(h, lp["ln"]), state[name])
+            h = h + y
+            _write(state[name], new)
+    elif fam == "hybrid":
+        period, L = cfg.attn_every, cfg.n_layers
+        n_groups = L // period
+
+        def mamba_layers(lo, hi, h):
+            for i in range(lo, hi):
+                lp = layer_slice(params["mamba"], i)
+                st = layer_slice(state["mamba"], i)
+                y, new = mamba2_decode_step(lp, cfg, rms_norm(h, lp["ln"]),
+                                            st)
+                _write(st, new)
+                h = h + y
+            return h
+
+        shared = params["shared_attn"]
+        for gi in range(n_groups):
+            h = mamba_layers(gi * period, (gi + 1) * period, h)
+            h = ffn_decode(shared, attn_decode(shared, h, state["k"][gi],
+                                               state["v"][gi]))
+        h = mamba_layers(n_groups * period, L, h)
+    elif fam == "encdec":
+        for i in range(cfg.n_layers):
+            lp = layer_slice(params["dec_blocks"], i)
+            h = attn_decode(lp, h, state["k"][i], state["v"][i])
+            q = attn_q_only(lp["xattn"], cfg, rms_norm(h, lp["ln_x"]))
+            xk, xv = state["cross_k"][i], state["cross_v"][i]
+            o = decode_attention(q, xk, xv, xk.shape[2])
+            h = ffn_decode(lp, h + o.reshape(B, 1, -1) @ lp["xattn"]["wo"])
+    else:
+        raise ValueError(fam)
     return _logits(params, cfg, h), state

@@ -1,21 +1,22 @@
 """Step factories, the serving half: prefill and decode on one card.
 
 ``make_prefill_step`` — full forward returning the last position's logits
-                        and the KV caches.
+                        and the caches (none for the SSM family).
 ``make_decode_step``  — one token against a pre-sized state.
 
-The reference's factories jit with production-mesh shardings and return
-(fn, shardings, ...); here there is no mesh, and each factory returns the
-callable alone.  The reference's `bind_runtime` only resolves the MoE
-token shards from the mesh, so for the dense family it is the identity and
-has no counterpart.  Training (`make_train_step`, AdamW, grad
-accumulation) belongs to the training slice.
+Every family of `configs/registry.py` is served.  The reference's
+factories jit with production-mesh shardings and return (fn, shardings,
+...); here there is no mesh, and each factory returns the callable alone.
+The reference's `bind_runtime` only resolves the MoE token shards from the
+mesh, so on one card it is the identity and has no counterpart (it comes
+with the LM mesh).  Training (`make_train_step`, AdamW, grad accumulation)
+belongs to the training slice.
 """
 from __future__ import annotations
 
 from ..configs.base import ArchConfig, ShapeConfig
 from ..core.device import resolve_device
-from ..models.transformer import check_family, decode_step, forward
+from ..models.transformer import decode_step, forward
 
 
 def _check_batch(shape: ShapeConfig, tokens) -> None:
@@ -27,10 +28,11 @@ def _check_batch(shape: ShapeConfig, tokens) -> None:
 def make_prefill_step(cfg: ArchConfig, shape: ShapeConfig, device=None,
                       backend: str = "cuda"):
     """(params, batch) -> (logits[:, -1:], caches).  ``backend="cuda"``
-    runs attention through the flash attention kernel, ``"torch"`` through
-    the blocked plain-torch walk.  Tokens are moved to `device` (CUDA
-    unless the caller asks for the CPU); params must already be there."""
-    check_family(cfg)
+    runs self-attention through the flash attention kernel, ``"torch"``
+    through the blocked plain-torch walk.  Every tensor of the batch
+    (tokens, and the family's positions, image_embeds or enc_embeds) is
+    moved to `device` (CUDA unless the caller asks for the CPU); params
+    must already be there."""
     dev = resolve_device(device)
 
     def prefill(params, batch):
@@ -45,22 +47,35 @@ def make_prefill_step(cfg: ArchConfig, shape: ShapeConfig, device=None,
     return prefill
 
 
+def _check_state(shape: ShapeConfig, state: dict) -> None:
+    """KV caches (L, B, KH, T, dh) must hold ``shape.seq_len`` positions
+    of ``shape.global_batch`` requests; a family without them (SSM) must
+    hold recurrent states of that batch."""
+    if "k" in state:
+        batch, held = state["k"].shape[1], state["k"].shape[3]
+        if held != shape.seq_len:
+            raise ValueError(f"{shape.name}: state holds {held} positions; "
+                             f"the shape serves {shape.seq_len}")
+    else:   # xLSTM: a dict of per-layer states, batch first
+        batch = next(iter(next(iter(state.values())).values())).shape[0]
+    if batch != shape.global_batch:
+        raise ValueError(f"{shape.name}: state of {batch} requests; the "
+                         f"shape serves {shape.global_batch}")
+
+
 def make_decode_step(cfg: ArchConfig, shape: ShapeConfig, device=None):
     """(params, batch, state) -> (logits (B, 1, Vp), new_state), with
-    batch = {"tokens": (B, 1), "cur_len": int or scalar}.  The state's
-    caches (sized ``shape.seq_len``) are updated in place: `new_state`
-    is `state` (the reference donates the state instead)."""
-    check_family(cfg)
+    batch = {"tokens": (B, 1), "cur_len": int or scalar} (VLM: also
+    "positions" (B, 1, 3)).  The state (KV caches sized ``shape.seq_len``
+    and recurrent states, as the family has them) is updated in place:
+    `new_state` is `state` (the reference donates the state instead)."""
     dev = resolve_device(device)
 
     def step(params, batch, state):
         batch = {k: v.to(dev) if hasattr(v, "to") else v
                  for k, v in batch.items()}
         _check_batch(shape, batch["tokens"])
-        if state["k"].shape[3] != shape.seq_len:
-            raise ValueError(f"{shape.name}: state holds "
-                             f"{state['k'].shape[3]} positions; the shape "
-                             f"serves {shape.seq_len}")
+        _check_state(shape, state)
         return decode_step(params, cfg, batch, state)
 
     return step

@@ -420,6 +420,50 @@ def test_reduced_qwen3_serves_through_kernel_like_torch_backend(cuda_device):
     assert torch.isfinite(out["cuda"]).all()
 
 
+@pytest.mark.parametrize("name", ["granite-moe-3b-a800m",
+                                  "seamless-m4t-medium"])
+def test_reduced_family_prefill_through_kernel_like_torch_backend(
+        cuda_device, name):
+    """A reduced MoE and a reduced enc-dec prefill on the card: one bf16
+    flash launch a self-attention (enc-dec: the encoder's, non-causal,
+    and the decoder's; cross-attention runs the plain walk) and nothing
+    else, none on the torch backend; last logits at the reference's bf16
+    bar (atol 0.15, rtol 0.1), and the enc-dec caches at 0.1."""
+    cfg = reduced_config(get_arch(name))
+    params = init_model(cfg, seed=0)
+    B, S = 2, 96
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=g)}
+    want = cfg.n_layers
+    if cfg.family == "encdec":
+        batch["enc_embeds"] = (torch.randn(B, S // cfg.enc_seq_div,
+                                           cfg.d_model, generator=g)
+                               * 0.02).bfloat16()
+        want += cfg.enc_layers
+    out = {}
+    for backend in ("cuda", "torch"):
+        prefill = make_prefill_step(cfg, ShapeConfig("p", S, B, "prefill"),
+                                    backend=backend)
+        before = dict(cuda_lib.LAUNCHES)
+        last, caches = prefill(params, batch)
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in cuda_lib.LAUNCHES.items()}
+        n = want if backend == "cuda" else 0
+        assert launched["flash_attention_tc"] == n
+        assert sum(launched.values()) == n
+        assert last.device.type == "cuda"
+        assert torch.isfinite(last.float()).all()
+        out[backend] = (last.float().cpu(), caches)
+    torch.testing.assert_close(out["cuda"][0], out["torch"][0], atol=0.15,
+                               rtol=0.1)
+    if cfg.family == "encdec":
+        assert set(out["cuda"][1]) == {"k", "v", "cross_k", "cross_v"}
+        assert out["cuda"][1]["cross_k"].shape[3] == S // cfg.enc_seq_div
+        for k, t in out["cuda"][1].items():
+            torch.testing.assert_close(t.float(), out["torch"][1][k].float(),
+                                       atol=0.1, rtol=0.1)
+
+
 def test_database_serves_through_the_cuda_engine(cuda_device):
     """`Database` on the card: `fit` learns on the device program (the
     pooled encode launched), the `cuda` engine serves Count, Range, Point
