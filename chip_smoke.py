@@ -10,7 +10,9 @@ no result.  Phases, each printing one JSON line:
    SMs and maximum SM clock (the integer peak, 64 int32 operations an SM a
    clock), and records for each flash and encode kernel instantiation the
    registers, static shared memory and spills that `ptxas -v` reports,
-   whether the bf16 kernel's SASS holds `HGMMA` (tensor-core) instructions
+   whether the bf16 kernel's SASS holds `HGMMA` (wgmma) instructions and
+   the float32 kernel's `HMMA` (mma.sync) instructions, the float32
+   kernel's dynamic shared memory a block (a `flash_f32_kernel` line),
    and how many SASS instructions each encode instantiation has
    (`cuobjdump -sass`);
 2. smbo: curve learning (SMBO, Algorithm 1) on the card through
@@ -98,11 +100,14 @@ no result.  Phases, each printing one JSON line:
    mid-stream; the same selections through a segment of the unique
    metadata rows on the `store` engine;
 13. kernels_flash: the two flash attention kernels against their plain
-   twin `mha_ref` on the card (atol = rtol = 2e-5 for the float32 scalar
-   kernel, 2e-2 for the bf16 tensor-core kernel, which is also held
-   against `flash_tc_ref` at 1e-2: that twin rounds where the kernel
-   rounds), with times (CUDA events over 20 launches after a warm-up,
-   for the twin and SDPA too, beside the profiler's), bounds and
+   twin `mha_ref` on the card (atol = rtol = 2e-5 for the float32
+   kernel, three TF32 products a product on the tensor cores, which is
+   also held against `flash_tf32x3_ref` at 1e-5; 2e-2 for the bf16
+   kernel, which is also held against `flash_tc_ref` at 1e-2: each twin
+   rounds where its kernel rounds), with times (CUDA events over 20
+   launches after a warm-up, for the twin and SDPA too, beside the
+   profiler's), bounds (float32: its flops at a third of the TF32 peak,
+   with `fp32_nontensor_ms` beside it) and
    `scaled_dot_product_attention` as a yardstick, at the LM path's shape
    (also as the model's (B, S, H, dh)-strided views) and the reference
    tests' shapes;
@@ -167,8 +172,13 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 INT32_OPS_PER_SM_CLOCK = 64    # sm_90: 64 int32 ALU ops an SM a clock
-FLOPS_PER_S = {"float32": 67e12,      # non-tensor float32 (data sheet)
-               "bfloat16": 989e12}    # dense bf16 tensor cores (data sheet)
+# Peak rate of the flash kernels' arithmetic by input type: bf16 on the
+# dense bf16 tensor cores (989 TFLOP/s, data sheet); float32 as three TF32
+# products (a third of the 495 TFLOP/s TF32 peak), which keep float32's
+# accuracy at the reference's bar.  FP32_NONTENSOR is the float32 rate
+# outside the tensor cores (67 TFLOP/s), kept beside it.
+FLOPS_PER_S = {"float32": 495e12 / 3, "bfloat16": 989e12}
+FP32_NONTENSOR_FLOPS_PER_S = 67e12
 BATCH = 256                    # queries per served batch
 Q_CHUNK = 16
 K_MAXSPLIT = 4
@@ -338,17 +348,28 @@ def phase_setup() -> dict:
     log = lib.with_suffix(".log")
     ptxas = log.read_text() if log.exists() else ""
     print(ptxas, file=sys.stderr, flush=True)
-    flash_hgmma, encode_sass = sass_counts(lib)
+    flash_hgmma, flash_hmma, encode_sass = sass_counts(lib)
+    flash_ptxas = ptxas_entries(ptxas, FLASH_ENTRY, lambda m: {
+        "kernel": m.group(1),
+        "dtype": ("float32" if m.group(1) == "flash_fwd_kernel"
+                  else "bfloat16"),
+        "dh": int(m.group(2))})
+    # the float32 kernel's resources a block, on a line of their own; its
+    # products must be tensor-core (HMMA) instructions
+    f32_smem = cuda_lib.library().flash_attention_smem_bytes
+    hmma = flash_hmma if isinstance(flash_hmma, dict) else {}
+    f32 = [{**e, "dynamic_smem_bytes": f32_smem(e["dh"]),
+            "hmma": hmma.get(str(e["dh"]), 0)}
+           for e in flash_ptxas if e["dtype"] == "float32"]
+    emit({"flash_f32_kernel": f32})
+    check(not hmma or all(e["hmma"] > 0 for e in f32),
+          f"the float32 flash kernel's SASS holds no HMMA: {f32}")
     emit({"phase": "setup", "card": card, "build_s": build_s,
           "library": str(lib.relative_to(ROOT)),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0], "sms": sms,
           "sm_clock_max": clock, "int32_ops_per_s": int_ops_per_s,
-          "flash_ptxas": ptxas_entries(ptxas, FLASH_ENTRY, lambda m: {
-              "kernel": m.group(1),
-              "dtype": "float32" if m.group(2) else "bfloat16",
-              "dh": int(m.group(3))}),
-          "flash_tc_hgmma": flash_hgmma,
+          "flash_ptxas": flash_ptxas, "flash_tc_hgmma": flash_hgmma,
           "encode_ptxas": ptxas_entries(ptxas, ENCODE_ENTRY, lambda m: {
               "kernel": "sfc_encode_kernel",
               "d": int(m.group(1)) or "any", "C": int(m.group(2)) or "any",
@@ -358,7 +379,7 @@ def phase_setup() -> dict:
 
 
 FLASH_ENTRY = re.compile(r"Compiling entry function '\S*?"
-                         r"(flash_tc_kernel|flash_fwd_kernel)I(f?)Li(\d+)E")
+                         r"(flash_tc_kernel|flash_fwd_kernel)ILi(\d+)E")
 ENCODE_ENTRY = re.compile(r"Compiling entry function '\S*?"
                           r"sfc_encode_kernelILi(\d+)ELi(\d+)ELb([01])E")
 
@@ -391,32 +412,37 @@ SASS_INSTRUCTION = re.compile(r"/\*[0-9a-f]{4,}\*/\s+\S")
 
 def sass_counts(lib: Path) -> tuple:
     """From the library's SASS (`cuobjdump -sass`): the HGMMA (wgmma)
-    instructions of each bf16 flash kernel instantiation, by head dim, and
-    the instructions of each `sfc_encode_kernel` instantiation, by its
+    instructions of each bf16 flash kernel instantiation and the HMMA
+    (mma.sync) instructions of each float32 one, by head dim, and the
+    instructions of each `sfc_encode_kernel` instantiation, by its
     template arguments (d, C, staged); "not available" without
     `cuobjdump`."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
-        return "not available", "not available"
+        return "not available", "not available", "not available"
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, timeout=300)
     if sass.returncode != 0:
         why = f"not available ({sass.stderr.strip()[:120]})"
-        return why, why
-    hgmma, encode, dh, enc = {}, {}, None, None
+        return why, why, why
+    hgmma, hmma, encode, dh, f32_dh, enc = {}, {}, {}, None, None, None
     for line in sass.stdout.splitlines():
         if "Function :" in line:
             m = re.search(r"flash_tc_kernelILi(\d+)E", line)
             dh = m.group(1) if m else None
+            m = re.search(r"flash_fwd_kernelILi(\d+)E", line)
+            f32_dh = m.group(1) if m else None
             m = re.search(r"sfc_encode_kernelILi(\d+)ELi(\d+)ELb([01])E",
                           line)
             enc = (f"d{m.group(1)}_C{m.group(2)}_"
                    f"{'smem' if m.group(3) == '1' else 'l1'}" if m else None)
         elif dh is not None and "HGMMA" in line:
             hgmma[dh] = hgmma.get(dh, 0) + 1
+        elif f32_dh is not None and "HMMA" in line:
+            hmma[f32_dh] = hmma.get(f32_dh, 0) + 1
         elif enc is not None and SASS_INSTRUCTION.search(line):
             encode[enc] = encode.get(enc, 0) + 1
-    return hgmma, encode
+    return hgmma, hmma, encode
 
 
 # ---------------------------------------------------------------------------
@@ -2318,6 +2344,10 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # float32 summation order and exp2's last bits remain, which can flip one
 # bf16 rounding of an output (at most 2^-7 of it) or of a probability.
 FLASH_TC_TOL = 1e-2
+# The float32 kernel against `flash_tf32x3_ref`, which takes the same
+# three TF32 products: the tensor cores' summation order against the
+# twin's is what remains.
+FLASH_TF32_TOL = 1e-5
 FLASH_ROWS = {"flash_attention_tc": "lm_serve_strided",
               "flash_attention": "lm_shape_f32"}
 
@@ -2333,8 +2363,10 @@ def visible_pairs(S: int, causal: bool, window: int) -> int:
 
 def flash_bound(B, H, KH, S, dh, dtype: str, causal, window) -> dict:
     """Least time for the attention: 4*dh flops per visible pair and head
-    over the peak for the input type (bf16: tensor cores), against q, k, v
-    and o moved once over the memory rate."""
+    over the peak for the input type (bf16: its tensor cores; float32: a
+    third of the TF32 tensor cores', three TF32 products a product),
+    against q, k, v and o moved once over the memory rate; the flops at
+    the float32 non-tensor peak beside it (`fp32_nontensor_ms`)."""
     esize = 4 if dtype == "float32" else 2
     nbytes = (2 * B * H + 2 * B * KH) * S * dh * esize
     flops = 4.0 * dh * B * H * visible_pairs(S, causal, window)
@@ -2343,7 +2375,7 @@ def flash_bound(B, H, KH, S, dh, dtype: str, causal, window) -> dict:
     return {"flops": flops, "bytes": nbytes,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "fp32_nontensor_ms": flops / FLOPS_PER_S["float32"] * 1e3}
+            "fp32_nontensor_ms": flops / FP32_NONTENSOR_FLOPS_PER_S * 1e3}
 
 
 def _twin_err(twin, got, q, k, v, tol: float, **kw) -> tuple:
@@ -2366,13 +2398,16 @@ def _twin_err(twin, got, q, k, v, tol: float, **kw) -> tuple:
 def hold_flash(label: str, q, k, v, *, causal: bool, window: int) -> dict:
     """One `flash_attention` call, which must launch its dtype's kernel
     once and nothing else and write o with q's strides (bf16), held
-    against `mha_ref` at FLASH_TOL and, for bf16, against `flash_tc_ref`
-    at FLASH_TC_TOL."""
+    against `mha_ref` at FLASH_TOL and against the dtype's rounding twin:
+    bf16 `flash_tc_ref` at FLASH_TC_TOL, float32 `flash_tf32x3_ref` at
+    FLASH_TF32_TOL."""
     import torch
     from repro_torch.kernels import cuda_lib
     from repro_torch.kernels.flash_attention.ops import (KERNELS,
                                                          flash_attention)
-    from repro_torch.kernels.flash_attention.ref import flash_tc_ref, mha_ref
+    from repro_torch.kernels.flash_attention.ref import (flash_tc_ref,
+                                                         flash_tf32x3_ref,
+                                                         mha_ref)
     kw = dict(causal=causal, window=window)
     kernel = KERNELS[q.dtype]
     before = dict(cuda_lib.LAUNCHES)
@@ -2394,6 +2429,14 @@ def hold_flash(label: str, q, k, v, *, causal: bool, window: int) -> dict:
                   f"(max abs {tc_err}, tolerance {FLASH_TC_TOL})")
         res.update(tc_twin_tolerance=FLASH_TC_TOL,
                    tc_twin_max_abs_err=tc_err)
+    else:
+        tf_err, ok = _twin_err(flash_tf32x3_ref, got, q, k, v,
+                               FLASH_TF32_TOL, **kw)
+        check(ok, f"flash_attention[{label}] disagrees with "
+                  f"flash_tf32x3_ref (max abs {tf_err}, tolerance "
+                  f"{FLASH_TF32_TOL})")
+        res.update(tf32_twin_tolerance=FLASH_TF32_TOL,
+                   tf32_twin_max_abs_err=tf_err)
     return res
 
 

@@ -3,8 +3,9 @@
 //
 // Replaces the Pallas TPU kernel `flash_attention_pallas` (body
 // `_flash_kernel`) in src/repro/kernels/flash_attention/kernel.py for
-// bfloat16 inputs; float32 inputs keep the scalar kernel in
-// flash_attention.cu.  It computes what the TPU kernel computes:
+// bfloat16 inputs; float32 inputs take flash_attention.cu (three TF32
+// products a product on mma.sync).  It computes what the TPU kernel
+// computes:
 //   o[b, h] = softmax(q[b, h] . k[b, kvh]^T * dh^-0.5 + mask) . v[b, kvh],
 //   kvh = h / (H / KH),
 // with masked scores at -1e30 (not -inf), the causal mask col <= row, the

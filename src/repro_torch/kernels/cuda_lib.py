@@ -47,6 +47,8 @@ _SIGNATURES = {
     # q, k, v, o, BH, BKH, S, dh, causal, window, stream (float32)
     "flash_attention_launch": (_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
                                _INT, _INT, _VP),
+    # dh -> dynamic shared memory bytes of a float32 block
+    "flash_attention_smem_bytes": (_INT,),
     # q, k, v, o, 12 strides, B, H, KH, S, dh, causal, window, stream (bf16)
     "flash_attention_tc_launch": (_VP, _VP, _VP, _VP, _I64P, _INT, _INT,
                                   _INT, _INT, _INT, _INT, _INT, _VP),

@@ -14,8 +14,10 @@ Two kernels, chosen by dtype (`plan_flash_attention`):
   16-byte-aligned base and strides is taken as it lies; the model's
   (B, S, H, dh) activations seen as (B, H, S, dh) need no copy, and o has
   q's strides.
-- float32: ``flash_attention`` (csrc/flash_attention.cu), scalar FMAs,
-  on contiguous (B·H, S, dh) and (B·KH, S, dh) copies.
+- float32: ``flash_attention`` (csrc/flash_attention.cu), mma.sync
+  tensor-core products in TF32 with each operand split into two TF32
+  parts (three products a product, float32-accurate), fed by cp.async,
+  on contiguous, 16-byte-aligned (B·H, S, dh) and (B·KH, S, dh) copies.
 """
 from __future__ import annotations
 
@@ -31,7 +33,8 @@ BACKENDS = ("cuda", "torch")
 HEAD_DIMS = (32, 64, 128)
 KERNELS = {torch.bfloat16: "flash_attention_tc",
            torch.float32: "flash_attention"}
-ALIGN = 16          # bytes: TMA base and stride alignment
+ALIGN = 16          # bytes: TMA base and stride alignment, and the
+                    # float32 kernel's 16-byte loads
 
 
 @dataclass(frozen=True)
@@ -72,6 +75,12 @@ def _tma_strides(name: str, t: torch.Tensor) -> tuple:
     return tuple(out)
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """`t` (contiguous), or a copy in fresh storage when its base is not
+    16-byte aligned: the float32 kernel reads rows as 16-byte vectors."""
+    return t if t.data_ptr() % ALIGN == 0 else t.clone()
+
+
 def plan_flash_attention(q, k, v, *, window: int = 0) -> FlashPlan:
     """Check q, k and v against what the kernels take and pick one; raise
     on anything else.  Reaches no card, so the CPU tests run it."""
@@ -96,7 +105,7 @@ def plan_flash_attention(q, k, v, *, window: int = 0) -> FlashPlan:
         raise ValueError(f"window must be >= 0; got {window}")
     kernel = KERNELS[q.dtype]
     if kernel == "flash_attention":
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        q, k, v = (_aligned(t.contiguous()) for t in (q, k, v))
         strides = ()
     else:
         strides = tuple(_tma_strides(n, t)

@@ -13,7 +13,10 @@ bf16 tensor-core kernel is also held against `flash_tc_ref`, which rounds
 where it rounds (P as two bf16 parts, scale after the product), at
 atol = rtol = 1e-2: what is left is float32 summation order and exp2's
 last bits, which can flip one bf16 rounding of an output (at most 2^-7
-of it) or of a probability."""
+of it) or of a probability.  The float32 kernel is also held against
+`flash_tf32x3_ref`, which takes the same three TF32 products, at
+atol = rtol = 1e-5: what is left is the order in which the tensor cores
+and the twin sum them."""
 import numpy as np
 import pytest
 import torch
@@ -29,7 +32,9 @@ from repro_torch.data.synth import make_dataset
 from repro_torch.data.workload import make_workload
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.flash_attention.ops import KERNELS, flash_attention
-from repro_torch.kernels.flash_attention.ref import flash_tc_ref, mha_ref
+from repro_torch.kernels.flash_attention.ref import (flash_tc_ref,
+                                                     flash_tf32x3_ref,
+                                                     mha_ref)
 from repro_torch.kernels.sfc_encode import ops as sfc_ops
 from repro_torch.kernels.sfc_encode.ops import sfc_encode, sfc_encode_pool
 from repro_torch.kernels.sfc_encode.ref import (lut_tables,
@@ -296,11 +301,17 @@ def test_evaluate_pool_on_card_matches_host(cuda_device, family, depth):
     (2, 8, 2, 200, 32, torch.bfloat16, True, 48),
     (1, 4, 2, 1, 64, torch.float32, True, 0),
     (3, 6, 3, 129, 64, torch.bfloat16, False, 0),
+    (1, 8, 2, 2048, 128, torch.float32, True, 0),
+    (1, 8, 2, 1000, 128, torch.float32, True, 0),
+    (1, 2, 2, 512, 64, torch.float32, True, 100),
 ])
 def test_flash_attention_kernel_matches_twin(cuda_device, B, H, KH, S, dh,
                                              dtype, causal, window):
-    """MHA, GQA and MQA; causal, full and windowed; S = 1, 129 and 200 take
-    the ragged last tile."""
+    """MHA, GQA and MQA; causal, full and windowed; S = 1, 129, 200 and
+    1,000 take the ragged last tile, window 100 starts inside a kv tile.
+    float32 is also held against `flash_tf32x3_ref` at 1e-5: the kernel's
+    three TF32 products summed in the tensor cores' order against the
+    twin's."""
     g = torch.Generator(device=cuda_device).manual_seed(B * 100 + S)
     q, k, v = (torch.randn(B, h, S, dh, generator=g, device=cuda_device)
                .to(dtype) for h in (H, KH, KH))
@@ -312,6 +323,10 @@ def test_flash_attention_kernel_matches_twin(cuda_device, B, H, KH, S, dh,
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     assert got.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if dtype == torch.float32:
+        torch.testing.assert_close(
+            got, flash_tf32x3_ref(q, k, v, causal=causal, window=window),
+            atol=1e-5, rtol=1e-5)
 
 
 def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(

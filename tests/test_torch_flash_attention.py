@@ -3,8 +3,8 @@
 On the CPU the port's wrapper takes its plain-torch twin `mha_ref` (the
 tensors lie on the CPU); the twin is held against the reference's jnp
 oracle and against its Pallas kernel in interpret mode, at the shapes of
-the reference's own tests (tests/test_kernels.py).  The CUDA kernel runs
-only on a GPU: tests/test_torch_cuda.py holds it against the twin there.
+the reference's own tests (tests/test_kernels.py).  The CUDA kernels run
+only on a GPU: tests/test_torch_cuda.py holds them against the twins there.
 
 Inputs are drawn with numpy from a seed and handed to both packages (bf16
 inputs are the same float32 draws rounded to nearest on both sides).
@@ -15,7 +15,11 @@ twin of the bf16 tensor-core kernel, carries P into P.V as two bf16
 parts (hi + lo) and scales after the product; it is held to the
 reference at the bf16 bar, and a reduced qwen3-4b through it to the
 reference's model at the reference's bar for two bf16 computations of the
-same logits (atol 0.15, rtol 0.1, tests/test_models_smoke.py)."""
+same logits (atol 0.15, rtol 0.1, tests/test_models_smoke.py).
+`flash_tf32x3_ref`, the twin of the float32 kernel, takes both products
+as three TF32 products (each operand split into big + small TF32 parts);
+it is held to the reference at the float32 bar, and its one-part variant
+is shown to miss that bar."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,7 +36,9 @@ from repro_torch.core.convert import lm_params_from_numpy
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                      plan_flash_attention)
-from repro_torch.kernels.flash_attention.ref import flash_tc_ref, mha_ref
+from repro_torch.kernels.flash_attention.ref import (flash_tc_ref,
+                                                     flash_tf32x3_ref,
+                                                     mha_ref, tf32_round)
 from repro_torch.models import attention as ta
 from repro_torch.models import transformer as tt
 
@@ -197,6 +203,99 @@ def test_reduced_qwen3_through_flash_tc_twin_matches_reference(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# the float32 tensor-core kernel's twin: three TF32 products
+# ---------------------------------------------------------------------------
+
+# The reference's float32 kernel shapes (tests/test_kernels.py: MHA, GQA
+# and MQA, causal and full; the windows 64 and 192) and dh 32.
+F32_CASES = [
+    (1, 4, 4, 256, 64, True, 0), (1, 4, 4, 256, 64, False, 0),
+    (2, 8, 2, 128, 64, True, 0), (2, 8, 2, 128, 64, False, 0),
+    (1, 4, 1, 256, 128, True, 0), (1, 4, 1, 256, 128, False, 0),
+    (1, 2, 2, 512, 64, True, 64), (1, 2, 2, 512, 64, True, 192),
+    (2, 4, 4, 256, 32, True, 0),
+]
+
+
+def _f32_case(B, H, KH, S, dh, causal, window):
+    (jq, jk, jv), (tq, tk, tv) = _inputs(B * 1000 + H + window, B, H, KH, S,
+                                         dh, "float32")
+    want = np.asarray(r_mha_ref(jq, jk, jv, causal=causal, window=window),
+                      np.float32)
+    return (tq, tk, tv), want
+
+
+@pytest.mark.parametrize("B,H,KH,S,dh,causal,window", F32_CASES)
+def test_flash_tf32x3_twin_matches_reference(B, H, KH, S, dh, causal,
+                                             window):
+    """Three TF32 products keep the float32 bar (2e-5) against the JAX
+    package's `mha_ref`."""
+    (tq, tk, tv), want = _f32_case(B, H, KH, S, dh, causal, window)
+    got = flash_tf32x3_ref(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == torch.float32 and got.shape == (B, H, S, dh)
+    _close(got, want, "float32")
+
+
+@pytest.mark.parametrize("B,H,KH,S,dh,causal,window", F32_CASES)
+def test_one_tf32_part_misses_the_float32_bar(B, H, KH, S, dh, causal,
+                                              window):
+    """One TF32 part of each operand (what a plain TF32 product keeps)
+    misses 2e-5 at every shape, so the split is what carries the bar."""
+    (tq, tk, tv), want = _f32_case(B, H, KH, S, dh, causal, window)
+    one = flash_tf32x3_ref(tq, tk, tv, causal=causal, window=window,
+                           parts=1).numpy()
+    three = flash_tf32x3_ref(tq, tk, tv, causal=causal, window=window)
+    assert not np.allclose(one, want, atol=TOL["float32"],
+                           rtol=TOL["float32"])
+    assert np.abs(one - want).max() > 10 * np.abs(three.numpy() - want).max()
+
+
+def _bits(u: int) -> torch.Tensor:
+    return torch.tensor([u], dtype=torch.int64).to(torch.int32).view(
+        torch.float32)
+
+
+@pytest.mark.parametrize("x,want", [
+    (1.0, 1.0),
+    (1 + 2 ** -11, 1 + 2 ** -10),                  # tie: away from zero
+    (-(1 + 2 ** -11), -(1 + 2 ** -10)),            # negative tie
+    (1 + 2 ** -11 - 2 ** -23, 1.0),                # just below the tie
+    (1 + 3 * 2 ** -11, 1 + 2 ** -9),               # tie, odd lower value
+    (-3.0 * 2 ** -130, -3.0 * 2 ** -130),          # subnormal, exact
+])
+def test_tf32_round_ties_and_negatives(x, want):
+    got = tf32_round(torch.tensor([x], dtype=torch.float32))
+    assert got.item() == want
+
+
+@pytest.mark.parametrize("u,want", [
+    (0x3F801FFF, 0x3F802000),    # low 13 bits all set: up one TF32 ulp
+    (0xBF801FFF, 0xBF802000),    # the same, negative
+    (0x3FFFFFFF, 0x40000000),    # carries into the exponent: 2.0
+    (0x3F800FFF, 0x3F800000),    # below half an ulp: down
+    (0xBF800FFF, 0xBF800000),
+])
+def test_tf32_round_low_bits(u, want):
+    got = tf32_round(_bits(u)).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    assert got.item() == want
+
+
+def test_tf32_round_is_nearest_with_ties_away():
+    """Against nearest-ties-away computed in float64 on seeded values of
+    every magnitude and sign."""
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal(20000) * np.exp2(rng.integers(-60, 60, 20000))
+         ).astype(np.float32)
+    x[:4] = [1 + 2 ** -11, -(1 + 2 ** -11), 2 ** -11, 3 * 2 ** -12]
+    got = tf32_round(torch.from_numpy(x)).numpy().astype(np.float64)
+    m = np.abs(x.astype(np.float64))
+    ulp = np.exp2(np.floor(np.log2(m)) - 10)
+    want = np.sign(x) * np.floor(m / ulp + 0.5) * ulp
+    np.testing.assert_array_equal(got, want)
+    assert not (got.astype(np.float32).view(np.int32) & 0x1FFF).any()
+
+
+# ---------------------------------------------------------------------------
 # the wrapper's plan: layout, alignment and kernel choice
 # ---------------------------------------------------------------------------
 
@@ -224,8 +323,8 @@ def test_plan_takes_model_layout_views_without_a_copy():
     (torch.float32, "flash_attention"),
 ])
 def test_plan_picks_kernel_by_dtype(dtype, kernel):
-    """bf16 takes the tensor-core kernel on the caller's views; float32 the
-    scalar kernel on contiguous copies."""
+    """bf16 takes the wgmma kernel on the caller's views; float32 the
+    TF32 tensor-core kernel on contiguous copies."""
     x = torch.zeros(2, 64, 4, 64, dtype=dtype).transpose(1, 2)
     plan = plan_flash_attention(x, x, x)
     assert plan.kernel == kernel
@@ -248,6 +347,20 @@ def test_plan_rejects_layouts_the_tma_cannot_read(make, what):
     x = make()
     with pytest.raises(ValueError, match=what):
         plan_flash_attention(x, x, x)
+
+
+def test_plan_realigns_float32_inputs_for_the_kernels_16_byte_loads():
+    """A contiguous float32 view whose base is 4 bytes past a 16-byte
+    boundary is copied into fresh storage; an aligned one is taken as it
+    lies."""
+    x = torch.arange(1 + 2 * 64 * 32, dtype=torch.float32)[1:].view(
+        1, 2, 64, 32)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    plan = plan_flash_attention(x, x, x)
+    assert plan.q.data_ptr() % 16 == 0 and plan.q.is_contiguous()
+    assert torch.equal(plan.q, x)
+    y = torch.zeros(1, 2, 64, 32)
+    assert plan_flash_attention(y, y, y).q is y
 
 
 def test_plan_ignores_strides_of_size_one_dimensions():
