@@ -68,7 +68,7 @@ no result.  Phases, each printing one JSON line:
 9. serving: `Database.serve(engine="cuda")` over the database phase's
    index under the JAX package's serving load (200 clients, Zipf 1.2,
    Count 0.45 / Range 0.2 / Point 0.25 / kNN 0.1 with k 4; SLO p99 100
-   ms, batch_max 64, reject on overload) for 2 s at 250, 1,000 and 4,000
+   ms, batch_max 64, reject on overload) for 1 s at 250, 1,000 and 4,000
    offered q/s: completion q/s, p50/p95/p99 from the scheduled arrivals,
    shed counts and the controller's window; every served result equals
    `replay_serial` of the served log on the `cuda` and on the `torch`
@@ -141,25 +141,45 @@ no result.  Phases, each printing one JSON line:
    (the JAX package's own full-depth prefill and decode differ past atol
    0.15 / rtol 0.1), and two planted faults (the state not carried, the
    prompt read one token ahead) must each pass that bar;
-16. launch check: every kernel ran on each path, the window and encode
+16. lm_train: qwen3-4b at its published widths on seeded random bf16
+   weights, as many of its 36 layers as leave ~15 GB of the card free
+   beside the training state (~20 B a parameter: bf16 params and
+   gradients, float32 accumulators, AdamW's float32 master, m and v),
+   trained by `make_train_step` with its own remat "full" and microbatch
+   8 on one seeded batch of 8 x 4,096 tokens (train_4k's length) with
+   `AdamWConfig(lr=1e-3, warmup_steps=1)`: one warm step under the
+   profiler (idle share, device launches), three timed steps (tokens/s,
+   s a step, peak memory; every launch count reset just before and read
+   just after, and all must be 0: attention trains on the plain-torch
+   walk, the flash kernel having no backward).  It holds (a) the first step's
+   loss to the served loss, the bf16 flash kernel's forward under
+   no_grad on the same weights and batch, within a relative 1e-3; (b) the
+   loss falling over the repeated batch; (c) AdamW on the card to AdamW
+   on the CPU for one leaf's gradient and state (relative L2 1e-6); (d)
+   the learning rate to `lr_at`; (e) the training launcher at the reduced
+   config on the card (6 steps, checkpoints every 3 under `build/`)
+   against its run resumed from step 3, losses within 1e-3;
+17. launch check: every kernel ran on each path, the window and encode
    kernels in the store and serving phases too, `window_filter` and
    `sfc_encode` in the distributed and router phases, `window_match` in
    the router and pipeline phases, `flash_attention_tc` in every
-   attention family.
+   attention family; no kernel in lm_train's timed steps.
 
 The line before the last lists the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero without
 that line.  ``--osm-rows``/``--nyc-rows``/``--batches``/``--smbo-iters``/
 ``--lm-layers``/``--decode-steps``/``--dp-prefix``/``--store-rows``/
 ``--serve-seconds``/``--router-shards``/``--pipeline-docs``/
-``--lm-families`` cut the depth for a quick run; the defaults are the full
-run.
+``--lm-families``/``--lm-train-layers`` cut the depth for a quick run; the
+defaults are the full run.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import hashlib
 import json
+import math
 import re
 import shutil
 import statistics
@@ -298,6 +318,37 @@ def profile_batch(fn) -> dict:
             "device_launches": sum(e.count for e in avgs),
             "top": [[e.key[:80], e.self_device_time_total / 1e3, e.count]
                     for e in top]}
+
+
+def profile_step(fn) -> dict:
+    """`profile_batch` for work that launches hundreds of thousands of
+    kernels (a train step): device activity only, read from the raw
+    profiler records, which skips building the profiler's event tree
+    (minutes at that count)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name, busy_ns, n = {}, 0, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        busy_ns += e.duration_ns()
+        n += 1
+        t = by_name.setdefault(e.name()[:80], [0, 0])
+        t[0] += e.duration_ns()
+        t[1] += 1
+    busy_ms = busy_ns / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return r, {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+               "idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
+               "device_launches": n,
+               "top": [[k, v[0] / 1e6, v[1]] for k, v in top]}
 
 
 def max_abs_err(a, b) -> int:
@@ -2973,6 +3024,271 @@ def phase_lm_families(seed: int, only=None) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 16: LM training on the card
+# ---------------------------------------------------------------------------
+
+LM_TRAIN_ARCH = "qwen3-4b"
+LM_TRAIN_SEQ = 4096            # train_4k's sequence length
+LM_TRAIN_BATCH = 8             # global batch: its microbatch 8 of 1 x 4,096
+LM_TRAIN_STEPS = 3             # timed steps, after one warm step
+LM_TRAIN_FREE = 20e9           # bytes left free: activations and logits
+                               # (~6.5 GB at qwen3-4b's widths), and room
+                               # for what earlier phases fragmented
+# bf16 params and microbatch gradients, float32 accumulators, master, m
+# and v: the bytes a parameter holds while a step runs
+LM_TRAIN_BYTES_PER_PARAM = 2 + 2 + 4 + 4 + 4 + 4
+LM_TRAIN_LAUNCHER = ["--arch", "qwen3-4b", "--steps", "6", "--ckpt-every",
+                     "3"]      # the reduced config, the launcher's batch
+LM_TRAIN_LOSS_RTOL = 1e-3      # training loss against the served loss
+LM_TRAIN_ADAMW_RTOL = 1e-6     # AdamW card against CPU: master, m, v
+
+
+def train_depth(cfg, free_bytes: float) -> int:
+    """The most layers (at most the published depth) whose training state
+    leaves `LM_TRAIN_FREE` bytes of `free_bytes`: the embedding (tied) and
+    final norm, and each layer, at `LM_TRAIN_BYTES_PER_PARAM`."""
+    import dataclasses
+    fixed = cfg.vocab_padded * cfg.d_model + cfg.d_model
+    per_layer = (dataclasses.replace(cfg, n_layers=1).param_count()
+                 - dataclasses.replace(cfg, n_layers=0).param_count())
+    room = free_bytes - LM_TRAIN_FREE - fixed * LM_TRAIN_BYTES_PER_PARAM
+    return max(1, min(cfg.n_layers,
+                      int(room // (per_layer * LM_TRAIN_BYTES_PER_PARAM))))
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return ((a - b).norm() / b.norm().clamp_min(1e-300)).item()
+
+
+def adamw_card_vs_cpu(opt_cfg, grad, param, state: dict) -> dict:
+    """One `adamw_update` of a single leaf (its gradient, param and state)
+    on the card and on copies on the CPU: relative L2 of the new master, m
+    and v, and the two grad norms and learning rates.  The new bf16 param
+    is the master rounded to bf16, so a last-bit difference of a master
+    can flip its rounding: params must equal their own master's rounding
+    on each side, and each param that differs between the sides must sit
+    on a master that differs, one bf16 step away (`param_flips`
+    counts them)."""
+    import torch
+    from repro_torch.optim.adamw import adamw_update
+
+    def run(dev):
+        st = {k: ({"w": v.to(dev, copy=True)} if k != "step"
+                  else v.to(dev, copy=True)) for k, v in state.items()}
+        p, st, stats = adamw_update(opt_cfg, {"w": grad.to(dev)}, st,
+                                    {"w": param.to(dev, copy=True)})
+        return {"param": p["w"].cpu(), **{k: st[k]["w"].cpu() for k in
+                                          ("master", "m", "v")}}, stats
+
+    card, cs = run(DEVICE)
+    host, hs = run("cpu")
+    rel = {k: _rel_l2(card[k], host[k]) for k in ("master", "m", "v")}
+    flips = card["param"] != host["param"]
+    steps = (card["param"].view(torch.int16).int()
+             - host["param"].view(torch.int16).int()).abs()[flips]
+    rounding = all(torch.equal(side["param"],
+                               side["master"].to(side["param"].dtype))
+                   for side in (card, host))
+    explained = bool((card["master"][flips] != host["master"][flips]).all()
+                     and (steps <= 1).all())
+    return {"numel": grad.numel(), "rel_l2": rel,
+            "param_flips": int(flips.sum()),
+            "grad_norm": [cs["grad_norm"].item(), hs["grad_norm"].item()],
+            "lr": [cs["lr"].item(), hs["lr"].item()],
+            "within": max(rel.values()) <= LM_TRAIN_ADAMW_RTOL
+            and rounding and explained}
+
+
+def run_launcher(ckpt_dir: Path) -> dict:
+    """The training launcher at the reduced config on the card: 6 steps
+    checkpointed every 3, then a run resumed from step 3 (the step-6
+    checkpoint removed), whose losses must equal the uninterrupted run's
+    within `LM_TRAIN_LOSS_RTOL` (the embedding's backward adds with
+    atomics on the card, so not bit for bit)."""
+    from repro_torch.launch import train as launch_train
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    argv = LM_TRAIN_LAUNCHER + ["--ckpt-dir", str(ckpt_dir), "--device",
+                                DEVICE]
+    try:
+        full = launch_train.main(argv)
+        for sub in (ckpt_dir, ckpt_dir / "opt"):
+            shutil.rmtree(sub / "step_00000006")
+        resumed = launch_train.main(argv + ["--resume"])
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    check([h["step"] for h in full] == list(range(6))
+          and [h["step"] for h in resumed] == [3, 4, 5],
+          f"lm_train: the launcher ran steps {[h['step'] for h in full]} "
+          f"and resumed {[h['step'] for h in resumed]}")
+    rel = [abs(b["loss"] - a["loss"]) / abs(a["loss"])
+           for a, b in zip(full[3:], resumed)]
+    return {"losses": [h["loss"] for h in full],
+            "resumed_losses": [h["loss"] for h in resumed],
+            "resumed_rel": rel, "step_s": [h["seconds"] for h in full],
+            "within": max(rel) <= LM_TRAIN_LOSS_RTOL}
+
+
+def phase_lm_train(seed: int, n_layers=None) -> dict:
+    """qwen3-4b at its published widths on seeded random bf16 weights, as
+    deep as the card's memory allows (`train_depth`, or `n_layers`),
+    trained on one seeded batch of LM_TRAIN_BATCH x LM_TRAIN_SEQ tokens by
+    `make_train_step` (its own remat "full" and microbatch 8; attention on
+    the plain-torch walk, the flash kernel having no backward): one warm
+    step under the profiler, then LM_TRAIN_STEPS timed steps, every launch
+    count reset just before and read just after each (all must be 0).
+    The phase's line is printed before its checks.  Holds (a) the first step's loss to the served loss
+    (the flash kernel's forward under no_grad) on the same weights and
+    batch, (b) the loss falling, (c) AdamW on the card to AdamW on the CPU
+    for one leaf, (d) the learning rate to `lr_at`, (e) the launcher's
+    resumed run to its uninterrupted one."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_arch, reduced_config
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models.transformer import init_model, lm_loss, \
+        param_bytes
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state, lr_at
+    from repro_torch.train.steps import make_grad_step, make_train_step
+
+    published = get_arch(LM_TRAIN_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    held_before = torch.cuda.memory_allocated()
+    depth = n_layers or train_depth(published, free)
+    cfg = dataclasses.replace(published, n_layers=depth)
+    B, S, mb = LM_TRAIN_BATCH, LM_TRAIN_SEQ, cfg.microbatch
+    dev = torch.device(DEVICE)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t
+
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s = timed(lambda: init_model(cfg, seed=seed, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                     device=dev)}
+
+    # (a)'s reference: the served forward (the bf16 flash kernel) under
+    # no_grad, one microbatch at a time, their losses summed and averaged
+    # as the train step sums and averages them
+    cuda_lib.reset_launches()
+    with torch.no_grad():
+        served, served_s = timed(lambda: sum(
+            lm_loss(params, cfg, {"tokens": batch["tokens"][j:j + 1]},
+                    backend="cuda")[0] for j in range(B)) / mb)
+    served_launches = dict(cuda_lib.LAUNCHES)
+    check(served_launches["flash_attention_tc"] == depth * B,
+          f"lm_train: the served loss launched "
+          f"{served_launches['flash_attention_tc']} bf16 flash kernels, "
+          f"expected {depth * B}")
+
+    opt = init_opt_state(params)
+    weight_bytes, opt_bytes = param_bytes(params), param_bytes(opt)
+    step = make_train_step(cfg, ShapeConfig("train_4k_cut", S, B, "train"),
+                           opt_cfg, device=dev)
+    history = []
+
+    def run_step():
+        nonlocal params, opt
+        params, opt, m = step(params, opt, batch)
+        history.append({k: v.item() for k, v in m.items()})
+
+    # the warm step (cuBLAS, the allocator) is the profiled one: at ~1e5
+    # launches a step its own warm-up is a small part of it
+    cuda_lib.reset_launches()
+    _, prof = profile_step(run_step)
+    warm_launches = dict(cuda_lib.LAUNCHES)
+    cuda_lib.reset_launches()
+    step_s = [timed(run_step)[1] for _ in range(LM_TRAIN_STEPS)]
+    launches = dict(cuda_lib.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    # (c): one leaf's gradient from one microbatch, with its real state
+    name = ("blocks", "attn", "wk")
+    grad_step = make_grad_step(dataclasses.replace(cfg, microbatch=1),
+                               ShapeConfig("one_microbatch", S, 1, "train"),
+                               device=dev)
+    _, _, grads = grad_step(params, {"tokens": batch["tokens"][:1]})
+    leaf = grads[name[0]][name[1]][name[2]]
+    del grads
+    pick = lambda t: t[name[0]][name[1]][name[2]]       # noqa: E731
+    adamw = adamw_card_vs_cpu(
+        opt_cfg, leaf, pick(params),
+        {"master": pick(opt["master"]), "m": pick(opt["m"]),
+         "v": pick(opt["v"]), "step": opt["step"]})
+    adamw["leaf"] = "/".join(name)
+    del leaf, params, opt, batch
+    torch.cuda.empty_cache()
+
+    launcher = run_launcher(ROOT / "build" / "lm_train_ckpt")
+
+    losses = [h["loss"] for h in history]
+    served = served.item()
+    rel_a = abs(losses[0] - served) / abs(served)
+    want_lr = [lr_at(opt_cfg, i + 1).item() for i in range(len(history))]
+    tokens = B * S
+    mean_s = statistics.mean(step_s)
+    res = {"phase": "lm_train", "arch": cfg.name, "n_layers": depth,
+           "published_layers": published.n_layers,
+           "reduced": {"n_layers": [depth, published.n_layers],
+                       "why": "training state at "
+                              f"{LM_TRAIN_BYTES_PER_PARAM} B a parameter "
+                              f"leaving {LM_TRAIN_FREE / 1e9:.0f} GB of "
+                              f"{free / 1e9:.2f} GB free"},
+           "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+           "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+           "vocab_padded": cfg.vocab_padded, "seq_len": S,
+           "global_batch": B, "microbatch": mb, "remat": cfg.remat,
+           "attention": "torch (plain walk)", "tokens_per_step": tokens,
+           "param_count": cfg.param_count(), "weight_bytes": weight_bytes,
+           "opt_state_bytes": opt_bytes, "free_bytes_before": free,
+           "allocated_bytes_before": held_before,
+           "total_bytes": total, "peak_device_bytes": int(peak),
+           "init_s": init_s, "served_loss_s": served_s,
+           "step_s": step_s, "s_per_step": mean_s,
+           "tokens_per_s": tokens / mean_s,
+           "model_flops_per_step": 6 * cfg.param_count() * tokens,
+           "model_tflops_per_s": 6 * cfg.param_count() * tokens / mean_s
+           / 1e12,
+           "steps": history, "lr_at": want_lr, "served_loss": served,
+           "loss_vs_served_rel": rel_a, "served_launches": served_launches,
+           "launches": launches, "warm_step_launches": warm_launches,
+           "warm_step_profile": prof, "adamw_card_vs_cpu": adamw,
+           "launcher": launcher}
+    emit(res)
+    check(sum(launches.values()) == 0 and sum(warm_launches.values()) == 0,
+          f"lm_train: a train step launched {launches} / {warm_launches}; "
+          f"the flash kernel has no backward and no kernel may run in "
+          f"training")
+    check(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+              for h in history),
+          f"lm_train: non-finite loss or grad norm {history}")
+    check(rel_a <= LM_TRAIN_LOSS_RTOL,
+          f"lm_train: first step's loss {losses[0]} against the served "
+          f"loss {served} (relative {rel_a}) past {LM_TRAIN_LOSS_RTOL}")
+    check(losses[-1] < losses[0],
+          f"lm_train: the loss did not fall over the repeated batch "
+          f"({losses})")
+    check([h["lr"] for h in history] == want_lr,
+          f"lm_train: lr {[h['lr'] for h in history]} against lr_at "
+          f"{want_lr}")
+    check(adamw["within"], f"lm_train: AdamW on the card and on the CPU "
+                           f"differ past {LM_TRAIN_ADAMW_RTOL} ({adamw})")
+    check(launcher["within"], f"lm_train: the resumed launcher's losses "
+                              f"differ past {LM_TRAIN_LOSS_RTOL} "
+                              f"({launcher})")
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 
 KERNEL_ROWS = (
@@ -3007,7 +3323,7 @@ def main(argv=None) -> int:
     ap.add_argument("--store-rows", type=int, default=None,
                     help="rows of the store's segment (default: all of "
                          "--osm-rows)")
-    ap.add_argument("--serve-seconds", type=float, default=2.0,
+    ap.add_argument("--serve-seconds", type=float, default=1.0,
                     help="seconds of offered load at each serving rate")
     ap.add_argument("--router-shards", type=int, default=4,
                     help="shard Databases of the router phase")
@@ -3016,6 +3332,9 @@ def main(argv=None) -> int:
     ap.add_argument("--lm-families", default=None,
                     help="comma-separated configs of the lm_families "
                          "phase (default: all six)")
+    ap.add_argument("--lm-train-layers", type=int, default=None,
+                    help="layers of the trained qwen3-4b (default: the "
+                         "most the card's memory takes)")
     args = ap.parse_args(argv)
 
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -3069,6 +3388,7 @@ def main(argv=None) -> int:
     lm = phase_lm_serve(args.seed, args.lm_layers, args.decode_steps)
     families = phase_lm_families(
         args.seed, args.lm_families.split(",") if args.lm_families else None)
+    train = phase_lm_train(args.seed, args.lm_train_layers)
 
     rows = []
     for name, source, replaces in KERNEL_ROWS:
@@ -3107,6 +3427,7 @@ def main(argv=None) -> int:
         row["pipeline_launches"] = pipeline_res["launches"][name]
         row["lm_families_launches"] = {
             arch: n[name] for arch, n in families["launches"].items()}
+        row["lm_train_launches"] = train["launches"][name]
         if name in ("window_filter", "window_match", "sfc_encode"):
             check(row["store_launches"] > 0 and row["serving_launches"] > 0,
                   f"{name} was not launched by the store or the server")

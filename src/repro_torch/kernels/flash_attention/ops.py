@@ -116,7 +116,9 @@ def plan_flash_attention(q, k, v, *, window: int = 0) -> FlashPlan:
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     backend: str = "cuda"):
     """q: (B, H, S, dh); k/v: (B, KH, S, dh) -> (B, H, S, dh) in q.dtype.
-    f32 or bf16 in, softmax in f32; dh in {32, 64, 128}; any S."""
+    f32 or bf16 in, softmax in f32; dh in {32, 64, 128}; any S.  The
+    kernels are forward only: on the CUDA route, q, k or v that autograd
+    would record (grad mode on and one requiring grad) raise."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}; got {backend!r}")
     if backend == "torch" or q.device.type == "cpu":
@@ -124,6 +126,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor; got {t.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention: the CUDA kernels have no backward (nor has "
+            "the reference's Pallas kernel), and their output would carry "
+            "no gradient; train through backend='torch', or call under "
+            "torch.no_grad()")
     plan = plan_flash_attention(q, k, v, window=window)
     o = torch.empty_like(plan.q)
     if not o.numel():

@@ -1,5 +1,5 @@
 """Shared model machinery: seeded dense init, stacked-layer init, norms,
-activations, rotary embeddings (incl. 3-section M-RoPE).
+activations, rotary embeddings (incl. 3-section M-RoPE), the loss.
 
 Parameters are plain dicts of tensors shaped like the reference's param
 tree.  The reference's PartitionSpec trees (`with_spec`, the spec half of
@@ -62,6 +62,15 @@ def layer_slice(tree: dict, i: int) -> dict:
     """Layer `i` of a stacked param tree (views, no copies)."""
     return {k: layer_slice(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def layer_list(tree, n: int) -> list:
+    """The `n` layers of a stacked param tree as a list of per-layer trees
+    (views), or `tree` itself when it is already such a list (the train
+    step passes one, each layer's tensors their own autograd leaves)."""
+    if isinstance(tree, list):
+        return tree
+    return [layer_slice(tree, i) for i in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -144,3 +153,21 @@ def apply_mrope(x, positions, sections, theta: float = 10000.0):
     idx = idx[None, None, :].expand(positions.shape[:2] + (dh // 2,))
     pos = torch.gather(positions.float(), -1, idx)
     return _rotate(x, pos * freqs)
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+
+def softmax_xent(logits, labels, mask=None):
+    """logits: (B, S, V); labels: (B, S) int.  float32 logsumexp less the
+    gold logit; the mask-weighted mean over ``max(sum(mask), 1)`` (the
+    plain mean without a mask)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
+    return torch.mean(nll)

@@ -11,19 +11,29 @@ and decode attention are plain torch on either backend.
 
 As in the reference, the hybrid and SSM prefills return no recurrent
 state (only the shared block's k/v, or nothing): decode starts from
-`init_decode_state`.  Training (`lm_loss`, remat) belongs to the training
-slice.
+`init_decode_state`.
+
+Training: `lm_loss` (next-token cross-entropy) over `forward`, whose
+layer bodies are rematerialised as the reference's are (`_wrap_remat`:
+the dense / MoE / VLM block, the hybrid's mamba block, the enc-dec
+encoder and decoder blocks; not the xLSTM stack or the hybrid's shared
+attention block) whenever autograd records them.  `forward` also takes
+each stacked layer tree as a list of per-layer trees (`common.layer_list`),
+which is how the train step hands it per-layer autograd leaves.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..core.device import resolve_device
 from .attention import (attn_kv_only, attn_q_only, attn_qkv,
                         attention_layer, decode_attention, init_attention)
-from .common import dense, layer_slice, rms_norm, stack_init
+from .common import (dense, layer_list, layer_slice, rms_norm,
+                     softmax_xent, stack_init)
 from .mamba2 import init_mamba2, mamba2_decode_step, mamba2_forward
 from .mamba2 import mamba2_init_state
 from .mlp import init_mlp, mlp
@@ -38,6 +48,55 @@ def ssm_layer_names(cfg) -> list:
     ``l{i}m`` for the mLSTM ones (the reference's param names)."""
     return [f"l{i}{'s' if i in cfg.slstm_layers else 'm'}"
             for i in range(cfg.n_layers)]
+
+
+# ---------------------------------------------------------------------------
+# remat
+# ---------------------------------------------------------------------------
+
+REMAT = ("none", "full", "dots")
+# "dots" keeps the outputs of matrix products without batch dimensions
+# (jax's dots_with_no_batch_dims_saveable); batched products (bmm, the
+# attention walk's einsums, the experts' products) are recomputed
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def _needs_grad(x) -> bool:
+    if isinstance(x, torch.Tensor):
+        return x.requires_grad
+    if isinstance(x, dict):
+        return any(_needs_grad(v) for v in x.values())
+    if isinstance(x, (list, tuple)):
+        return any(_needs_grad(v) for v in x)
+    return False
+
+
+def _wrap_remat(fn, remat: str):
+    """`fn` rematerialised under `remat`: ``"none"`` saves everything,
+    ``"full"`` only the block's inputs (its body is recomputed in the
+    backward), ``"dots"`` also the outputs of its unbatched matrix
+    products.  A call that autograd does not record (no grad mode, or no
+    input that requires grad: serving) runs `fn` as it is."""
+    if remat not in REMAT:
+        raise ValueError(f"remat must be one of {REMAT}; got {remat!r}")
+    if remat == "none":
+        return fn
+    kw = {"context_fn": _dots_context} if remat == "dots" else {}
+
+    def wrapped(*args):
+        if not (torch.is_grad_enabled() and _needs_grad(args)):
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return wrapped
 
 
 # ---------------------------------------------------------------------------
@@ -185,11 +244,12 @@ def forward(params, cfg, batch, *, backend="cuda", want_cache=False):
     fam = cfg.family
 
     if fam in ("dense", "moe", "vlm"):
+        blk = _wrap_remat(lambda hh, lp: _dense_block(
+            lp, cfg, hh, positions, backend=backend, want_kv=want_cache),
+            cfg.remat)
         drops = []
-        for i in range(cfg.n_layers):
-            h, drop, kv = _dense_block(layer_slice(params["blocks"], i), cfg,
-                                       h, positions, backend=backend,
-                                       want_kv=want_cache)
+        for i, lp in enumerate(layer_list(params["blocks"], cfg.n_layers)):
+            h, drop, kv = blk(h, lp)
             if drop is not None:
                 drops.append(drop)
             if want_cache:
@@ -204,11 +264,13 @@ def forward(params, cfg, batch, *, backend="cuda", want_cache=False):
     elif fam == "hybrid":
         period, L = cfg.attn_every, cfg.n_layers
         n_groups = L // period
+        mamba = layer_list(params["mamba"], L)
+        mblk = _wrap_remat(lambda hh, lp: hh + mamba2_forward(
+            lp, cfg, rms_norm(hh, lp["ln"])), cfg.remat)
 
         def mamba_layers(lo, hi, h):
             for i in range(lo, hi):
-                lp = layer_slice(params["mamba"], i)
-                h = h + mamba2_forward(lp, cfg, rms_norm(h, lp["ln"]))
+                h = mblk(h, mamba[i])
             return h
 
         for gi in range(n_groups):
@@ -221,16 +283,22 @@ def forward(params, cfg, batch, *, backend="cuda", want_cache=False):
     elif fam == "encdec":
         enc_h = batch["enc_embeds"].to(h.dtype)
         enc_pos = _positions_1d(B, enc_h.shape[1], h.device)
-        for i in range(cfg.enc_layers):
-            enc_h, _, _ = _dense_block(layer_slice(params["enc_blocks"], i),
-                                       cfg, enc_h, enc_pos, causal=False,
-                                       backend=backend)
+        eblk = _wrap_remat(lambda hh, lp: _dense_block(
+            lp, cfg, hh, enc_pos, causal=False, backend=backend)[0],
+            cfg.remat)
+        for lp in layer_list(params["enc_blocks"], cfg.enc_layers):
+            enc_h = eblk(enc_h, lp)
         enc_h = rms_norm(enc_h, params["enc_norm"])
-        for i in range(cfg.n_layers):
-            lp = layer_slice(params["dec_blocks"], i)
+
+        def dblk(hh, lp):
             ek, ev = attn_kv_only(lp["xattn"], cfg, enc_h)
-            h, _, kv = _dense_block(lp, cfg, h, positions, backend=backend,
-                                    enc_kv=(ek, ev), want_kv=want_cache)
+            hh, _, kv = _dense_block(lp, cfg, hh, positions, backend=backend,
+                                     enc_kv=(ek, ev), want_kv=want_cache)
+            return hh, kv, (ek, ev)
+        dblk = _wrap_remat(dblk, cfg.remat)
+        for i, lp in enumerate(layer_list(params["dec_blocks"],
+                                          cfg.n_layers)):
+            h, kv, (ek, ev) = dblk(h, lp)
             if want_cache:
                 _store_kv(caches, cfg.n_layers, i, kv)
                 _store_kv(caches, cfg.n_layers, i,
@@ -239,6 +307,23 @@ def forward(params, cfg, batch, *, backend="cuda", want_cache=False):
     else:
         raise ValueError(fam)
     return _logits(params, cfg, h), aux, caches
+
+
+def lm_loss(params, cfg, batch, *, backend="torch"):
+    """Next-token cross-entropy of `forward`: labels are the tokens rolled
+    left by one, the last position masked (and, for VLM, the image
+    prefix).  Returns (loss float32 0-d, aux_dict).  The default backend
+    is the plain-torch walk: the flash kernel has no backward (nor has the
+    reference's), and its wrapper refuses autograd on a card."""
+    logits, aux, _ = forward(params, cfg, batch, backend=backend)
+    tokens = batch["tokens"]
+    labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    mask = torch.ones(labels.shape, dtype=torch.float32,
+                      device=labels.device)
+    mask[:, -1] = 0.0
+    if cfg.family == "vlm":     # image prefix carries no LM loss
+        mask[:, :cfg.n_image_tokens] = 0.0
+    return softmax_xent(logits, labels, mask), aux
 
 
 # ---------------------------------------------------------------------------

@@ -783,3 +783,66 @@ def test_indexed_dataset_selects_through_window_match(cuda_device):
         np.testing.assert_array_equal(ds.select(lo, hi),
                                       host.select(lo, hi))
     assert cuda_lib.LAUNCHES["window_match"] > 0
+
+
+def test_flash_wrapper_refuses_autograd_and_serves_under_no_grad(
+        cuda_device):
+    """The kernels have no backward: on the CUDA route, inputs that
+    autograd would record raise (the output would silently carry no
+    gradient); under `torch.no_grad()` the same inputs are served by one
+    launch, held against the twin at the bf16 bar."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    q, k, v = (torch.randn((1, 4, 128, 64), generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    q.requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention(q, k, v, causal=True)
+    before = cuda_lib.LAUNCHES["flash_attention_tc"]
+    with torch.no_grad():
+        got = flash_attention(q, k, v, causal=True)
+    assert cuda_lib.LAUNCHES["flash_attention_tc"] == before + 1
+    torch.testing.assert_close(
+        got.float(), mha_ref(q.detach(), k, v, causal=True).float(),
+        atol=2e-2, rtol=2e-2)
+    # the twin's route stays differentiable
+    flash_attention(q, k, v, causal=True, backend="torch").sum().backward()
+    assert q.grad is not None and bool(torch.isfinite(q.grad.float()).all())
+
+
+def test_reduced_train_step_on_card_like_cpu(cuda_device):
+    """A reduced qwen3-4b train step (2 microbatches, remat "full") on the
+    card against the same step on the CPU from the same weights: the loss
+    within a relative 1e-3 and the gradient norm within 0.08 (the CPU
+    tests' bars for two bf16 computations), no flash launch, and
+    ``backend="cuda"`` refused."""
+    import dataclasses
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.train.steps import make_train_step
+
+    cfg = dataclasses.replace(reduced_config(get_arch("qwen3-4b")),
+                              microbatch=2, remat="full")
+    shape = ShapeConfig("t", 64, 4, "train")
+    toks = torch.randint(0, cfg.vocab, (4, 64),
+                         generator=torch.Generator().manual_seed(3))
+    host = init_model(cfg, seed=0, device="cpu")
+    card = _to(init_model(cfg, seed=0, device="cpu"), cuda_device)
+    out = {}
+    for dev, params in (("cpu", host), ("cuda", card)):
+        step = make_train_step(cfg, shape, AdamWConfig(lr=1e-3,
+                                                       warmup_steps=1),
+                               device=dev)
+        cuda_lib.reset_launches()
+        _, _, m = step(params, init_opt_state(params), {"tokens": toks})
+        assert sum(cuda_lib.LAUNCHES.values()) == 0
+        out[dev] = {k: v.item() for k, v in m.items()}
+    assert out["cuda"]["loss"] == pytest.approx(out["cpu"]["loss"], rel=1e-3)
+    assert out["cuda"]["grad_norm"] == pytest.approx(out["cpu"]["grad_norm"],
+                                                     rel=0.08)
+    assert out["cuda"]["lr"] == out["cpu"]["lr"]
+    with pytest.raises(ValueError, match="no backward"):
+        make_train_step(cfg, shape, backend="cuda")
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
