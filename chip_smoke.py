@@ -68,7 +68,7 @@ no result.  Phases, each printing one JSON line:
 9. serving: `Database.serve(engine="cuda")` over the database phase's
    index under the JAX package's serving load (200 clients, Zipf 1.2,
    Count 0.45 / Range 0.2 / Point 0.25 / kNN 0.1 with k 4; SLO p99 100
-   ms, batch_max 64, reject on overload) for 1 s at 250, 1,000 and 4,000
+   ms, batch_max 64, reject on overload) for 0.5 s at 250, 1,000 and 4,000
    offered q/s: completion q/s, p50/p95/p99 from the scheduled arrivals,
    shed counts and the controller's window; every served result equals
    `replay_serial` of the served log on the `cuda` and on the `torch`
@@ -142,9 +142,10 @@ no result.  Phases, each printing one JSON line:
    0.15 / rtol 0.1), and two planted faults (the state not carried, the
    prompt read one token ahead) must each pass that bar;
 16. lm_train: qwen3-4b at its published widths on seeded random bf16
-   weights, as many of its 36 layers as leave ~15 GB of the card free
+   weights, as many of its 36 layers as leave 20 GB of the card free
    beside the training state (~20 B a parameter: bf16 params and
    gradients, float32 accumulators, AdamW's float32 master, m and v),
+   at most 16 (the script's time),
    trained by `make_train_step` with its own remat "full" and microbatch
    8 on one seeded batch of 8 x 4,096 tokens (train_4k's length) with
    `AdamWConfig(lr=1e-3, warmup_steps=1)`: one warm step under the
@@ -159,11 +160,36 @@ no result.  Phases, each printing one JSON line:
    the learning rate to `lr_at`; (e) the training launcher at the reduced
    config on the card (6 steps, checkpoints every 3 under `build/`)
    against its run resumed from step 3, losses within 1e-3;
-17. launch check: every kernel ran on each path, the window and encode
+   Its model flops are `dist.roofline.model_flops` at the phase's own
+   shape and depth, and its `mfu` those over the step time at the H100's
+   989 TFLOP/s;
+17. cost_model: the step counter (`dist.hlo_analysis.StepCounter`) on
+   the card against the same step counted on `meta` tensors (shapes
+   only): qwen3-4b at published widths and 4 layers, one lm_serve-shaped
+   prefill (4 x 2,048) and one decode step from its caches, and one
+   Count and one Range batch of the `cuda` kernels on the main phase's
+   10M-row index; and the dry run's own card route (`count_cell` on
+   "cuda", the prefill and a decode step from seeded `input_specs`
+   inputs) against its meta route.  Flops, bytes and calls of every op
+   name must be equal, each kernel's counted calls must equal its
+   `LAUNCHES` delta, and each kernel op's bytes (and flops) must equal
+   its bound's at the call's shapes (the window kernels' with every slot
+   valid).  Then
+   the shares of the measured steps: meta dry runs of lm_serve's prefill
+   and decode step (36 layers), lm_train's step (its depth, 8 x 4,096)
+   and the main phase's Count batch give counted flops and bytes,
+   `compute_s` and `memory_s` at the H100's ceilings
+   (`dist.roofline`), `mfu` (model flops over the measured time at 989
+   TFLOP/s), `roofline_share` (the larger term over the measured time)
+   and `useful_flops_ratio`; lm_train's counted argument and temporary
+   bytes stand beside its measured peak.  Every share must be at most
+   1.05;
+18. launch check: every kernel ran on each path, the window and encode
    kernels in the store and serving phases too, `window_filter` and
    `sfc_encode` in the distributed and router phases, `window_match` in
    the router and pipeline phases, `flash_attention_tc` in every
-   attention family; no kernel in lm_train's timed steps.
+   attention family; no kernel in lm_train's timed steps; each kernel's
+   calls in cost_model beside its row.
 
 The line before the last lists the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero without
@@ -1006,6 +1032,9 @@ def _hold_path(name: str, data, index, curve, n_batches: int, seed: int,
         "launches_per_batch": per_batch, "peak_device_bytes": int(peak),
         "profile": profile}
     emit(res)
+    # what the cost_model phase counts again: not printed
+    res["_served"] = {"arrays": arrays, "batch": batches[0],
+                      "curve": curve, "batch_s": count_s / n_batches}
     return res
 
 
@@ -3032,6 +3061,8 @@ LM_TRAIN_SEQ = 4096            # train_4k's sequence length
 LM_TRAIN_BATCH = 8             # global batch: its microbatch 8 of 1 x 4,096
 LM_TRAIN_STEPS = 3             # timed steps, after one warm step
 LM_TRAIN_FREE = 20e9           # bytes left free: activations and logits
+LM_TRAIN_MAX_LAYERS = 16       # the script's time: ~3.5 s a layer (four
+                               # steps and cost_model's meta count)
                                # (~6.5 GB at qwen3-4b's widths), and room
                                # for what earlier phases fragmented
 # bf16 params and microbatch gradients, float32 accumulators, master, m
@@ -3146,6 +3177,7 @@ def phase_lm_train(seed: int, n_layers=None) -> dict:
     import torch
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.configs.registry import get_arch, reduced_config
+    from repro_torch.dist import roofline
     from repro_torch.kernels import cuda_lib
     from repro_torch.models.transformer import init_model, lm_loss, \
         param_bytes
@@ -3157,7 +3189,8 @@ def phase_lm_train(seed: int, n_layers=None) -> dict:
     torch.cuda.empty_cache()
     free, total = torch.cuda.mem_get_info()
     held_before = torch.cuda.memory_allocated()
-    depth = n_layers or train_depth(published, free)
+    depth = n_layers or min(train_depth(published, free),
+                            LM_TRAIN_MAX_LAYERS)
     cfg = dataclasses.replace(published, n_layers=depth)
     B, S, mb = LM_TRAIN_BATCH, LM_TRAIN_SEQ, cfg.microbatch
     dev = torch.device(DEVICE)
@@ -3236,13 +3269,20 @@ def phase_lm_train(seed: int, n_layers=None) -> dict:
     want_lr = [lr_at(opt_cfg, i + 1).item() for i in range(len(history))]
     tokens = B * S
     mean_s = statistics.mean(step_s)
+    # the model's flops at the phase's own shape and depth: 6 N T plus
+    # the attention's matrix products, forward and backward
+    model_flops = roofline.model_flops(
+        cfg, ShapeConfig("train_4k_cut", S, B, "train"))
     res = {"phase": "lm_train", "arch": cfg.name, "n_layers": depth,
            "published_layers": published.n_layers,
            "reduced": {"n_layers": [depth, published.n_layers],
-                       "why": "training state at "
+                       "why": "the script's time (at most "
+                              f"{LM_TRAIN_MAX_LAYERS} layers) and the "
+                              "training state at "
                               f"{LM_TRAIN_BYTES_PER_PARAM} B a parameter "
                               f"leaving {LM_TRAIN_FREE / 1e9:.0f} GB of "
-                              f"{free / 1e9:.2f} GB free"},
+                              f"{free / 1e9:.2f} GB free (memory alone: "
+                              f"{train_depth(published, free)} layers)"},
            "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
            "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
            "vocab_padded": cfg.vocab_padded, "seq_len": S,
@@ -3255,9 +3295,9 @@ def phase_lm_train(seed: int, n_layers=None) -> dict:
            "init_s": init_s, "served_loss_s": served_s,
            "step_s": step_s, "s_per_step": mean_s,
            "tokens_per_s": tokens / mean_s,
-           "model_flops_per_step": 6 * cfg.param_count() * tokens,
-           "model_tflops_per_s": 6 * cfg.param_count() * tokens / mean_s
-           / 1e12,
+           "model_flops_per_step": model_flops,
+           "model_tflops_per_s": model_flops / mean_s / 1e12,
+           "mfu": model_flops / (mean_s * roofline.PEAK_FLOPS),
            "steps": history, "lr_at": want_lr, "served_loss": served,
            "loss_vs_served_rel": rel_a, "served_launches": served_launches,
            "launches": launches, "warm_step_launches": warm_launches,
@@ -3285,6 +3325,249 @@ def phase_lm_train(seed: int, n_layers=None) -> dict:
     check(launcher["within"], f"lm_train: the resumed launcher's losses "
                               f"differ past {LM_TRAIN_LOSS_RTOL} "
                               f"({launcher})")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the cost model, counted on the card
+# ---------------------------------------------------------------------------
+
+COST_LM_LAYERS = 4             # depth of the card-against-meta LM counts
+SHARE_LIMIT = 1.05             # a share above this is a counting fault
+
+
+def _count(step, *args):
+    """`step(*args)` under a fresh `StepCounter` with its op log, every
+    launch count reset just before; (output, counter, launches)."""
+    import torch
+    from repro_torch.dist.hlo_analysis import StepCounter
+    from repro_torch.kernels import cuda_lib
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    with StepCounter(op_log=True) as counter:
+        out = step(*args)
+    return out, counter, dict(cuda_lib.LAUNCHES)
+
+
+def _on_meta(tree):
+    """`tree` (tensors in dicts, lists, tuples, dataclasses) with every
+    tensor replaced by an empty one of its shape, dtype and strides on
+    meta."""
+    import dataclasses
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return torch.empty_strided(tuple(tree.shape), tree.stride(),
+                                   dtype=tree.dtype, device="meta")
+    if isinstance(tree, dict):
+        return {k: _on_meta(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_on_meta(v) for v in tree)
+    if hasattr(tree, "__dataclass_fields__"):
+        return dataclasses.replace(tree, **{
+            k: _on_meta(getattr(tree, k)) for k in tree.__dataclass_fields__})
+    return tree
+
+
+def _hold_counts(name: str, card, meta, launches: dict) -> dict:
+    """The card's count of a step against meta's: totals and calls of
+    every op name equal, each kernel's calls equal to its launches."""
+    got, want = card.analyze(), meta.analyze()
+    ops_card, ops_meta = dict(card.op_counts), dict(meta.op_counts)
+    diff = {k: (ops_card.get(k), ops_meta.get(k))
+            for k in set(ops_card) | set(ops_meta)
+            if ops_card.get(k) != ops_meta.get(k)}
+    check(got == want and not diff,
+          f"cost_model {name}: card count {got} != meta count {want}; "
+          f"op calls that differ (card, meta): {diff}")
+    calls = dict(card.kernel_calls)
+    for key, n in launches.items():
+        check(calls.get(key, 0) == n,
+              f"cost_model {name}: {calls.get(key, 0)} counted calls of "
+              f"{key} against {n} launches")
+    return {"flops": got["flops"], "bytes": got["bytes"],
+            "ops": sum(ops_card.values()), "op_names": len(ops_card),
+            "kernel_calls": calls, "launches": {k: v for k, v in
+                                                launches.items() if v}}
+
+
+def _kernel_bytes_vs_bounds(counters, curve) -> dict:
+    """Every kernel op a counter logged against the bound's work at its
+    shapes: flash `flash_bound`'s flops and bytes, the encode
+    `encode_work`, the window kernels the bound's bytes with every slot
+    valid (the bound itself counts the valid slots of its data)."""
+    from repro_torch.core.curve import curve_tables
+    out = {}
+    for counter in counters:
+        for r in counter.op_log():
+            if not r["op"].startswith("repro_torch."):
+                continue
+            key = r["op"][len("repro_torch."):]
+            shapes, n = r["shapes"], r["count"]
+            if key == "flash_attention_tc":
+                (B, H, S, dh), KH = shapes[0], shapes[1][1]
+                b = flash_bound(B, H, KH, S, dh, "bfloat16", True, 0)
+                want = (n * b["flops"], n * b["bytes"])
+            elif key == "sfc_encode":
+                x_n, d = shapes[0]
+                pos, reg = curve_tables(curve, "cpu")
+                M = int((reg < curve.d * curve.K).sum())
+                want = (0, n * encode_work(x_n, d, curve.K, pos.shape[0], M))
+            else:
+                (G, d, cap) = shapes[0]
+                out_bytes = G * 4 if key == "window_filter" else G * cap
+                want = (0, n * ((G * cap) * d * 4 + G * d * 2 * 4 + G * 4
+                                + out_bytes))
+            ok = (r["flops"], r["bytes"]) == want
+            check(ok, f"cost_model: {key} counted {r['flops']} flops, "
+                      f"{r['bytes']} bytes at {shapes}; its bound's work "
+                      f"is {want}")
+            row = out.setdefault(key, {"calls": 0, "bytes": 0,
+                                       "bound_bytes": 0})
+            row["calls"] += n
+            row["bytes"] += r["bytes"]
+            row["bound_bytes"] += want[1]
+    return out
+
+
+def _share(cfg, shape, run: dict, measured_s: float) -> dict:
+    """A measured step against its meta dry run at the H100's ceilings."""
+    from repro_torch.dist import roofline as rl
+    cost = run["counter"].analyze()
+    roof = rl.analyze(cost, run["memory_stats"])
+    mf = rl.model_flops(cfg, shape) if cfg is not None else None
+    share = max(roof.compute_s, roof.memory_s) / measured_s
+    return {"model_flops": mf, "counted_flops": cost["flops"],
+            "counted_bytes": cost["bytes"], "compute_s": roof.compute_s,
+            "memory_s": roof.memory_s, "dominant": roof.dominant,
+            "measured_s": measured_s,
+            "mfu": mf / (measured_s * rl.PEAK_FLOPS) if mf else None,
+            "roofline_share": share,
+            "useful_flops_ratio": mf / max(cost["flops"], 1.0)
+            if mf else None,
+            "memory_stats": run["memory_stats"],
+            "count_s": run["seconds"]}
+
+
+def phase_cost_model(seed: int, served: dict, lm: dict,
+                     train: dict) -> dict:
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.dist import roofline as rl
+    from repro_torch.dist.hlo_analysis import tensor_bytes
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch.dryrun import count_cell
+    from repro_torch.models.transformer import init_decode_state, init_model
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    published = get_arch(LM_ARCH)
+    cfg = dataclasses.replace(published, n_layers=COST_LM_LAYERS)
+    B, S = LM_BATCH, LM_PROMPT
+    T = lm["prompt_tokens"] + lm["decode_steps"]
+    pre_shape = ShapeConfig("lm_prefill", S, B, "prefill")
+    dec_shape = ShapeConfig("lm_decode", T, B, "decode")
+    held = {}
+
+    # --- LM: a prefill and a decode step, on the card and on meta --------
+    params = init_model(cfg, seed=seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                     device="cuda")}
+    prefill = make_prefill_step(cfg, pre_shape)
+    (last, caches), card, launches = _count(prefill, params, batch)
+    m_params, m_batch = _on_meta(params), _on_meta(batch)
+    _, meta, _ = _count(make_prefill_step(cfg, pre_shape, device="meta"),
+                        m_params, m_batch)
+    held["prefill"] = _hold_counts("prefill", card, meta, launches)
+    check(launches["flash_attention_tc"] == COST_LM_LAYERS,
+          f"cost_model: {launches['flash_attention_tc']} flash launches in "
+          f"a {COST_LM_LAYERS}-layer prefill")
+    counters = [card]
+
+    state = init_decode_state(cfg, T, B)
+    for kv in ("k", "v"):
+        state[kv][:, :, :, :S] = caches[kv]
+    del caches
+    step = {"tokens": last[:, 0].argmax(-1)[:, None], "cur_len": S}
+    _, card, launches = _count(make_decode_step(cfg, dec_shape), params,
+                               step, state)
+    m_state = init_decode_state(cfg, T, B, device="meta")
+    _, meta, _ = _count(make_decode_step(cfg, dec_shape, device="meta"),
+                        m_params, _on_meta(step), m_state)
+    held["decode"] = _hold_counts("decode", card, meta, launches)
+    del params, state, last, batch
+
+    # the dry run's own card route (`count_cell(device="cuda")`: seeded
+    # inputs from `input_specs`, a zero decode state) against its meta
+    # route, as `python -m repro_torch.launch.dryrun --device cuda` runs
+    for kind, shape in (("dryrun_prefill", pre_shape),
+                        ("dryrun_decode", dec_shape)):
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        card = count_cell(cfg, shape, device="cuda", seed=seed)["counter"]
+        launches = dict(cuda_lib.LAUNCHES)
+        meta = count_cell(cfg, shape)["counter"]
+        held[kind] = _hold_counts(kind, card, meta, launches)
+        del card
+
+    # --- the main phase's Count and Range batches ---------------------------
+    arrays, queries, curve = (served["arrays"], served["batch"],
+                              served["curve"])
+    m_arrays, m_queries = _on_meta(arrays), _on_meta(queries)
+    for kind, fn in zip(("count", "range"), _fns(curve, "cuda")):
+        _, card, launches = _count(fn, arrays, queries)
+        _, meta, _ = _count(fn, m_arrays, m_queries)
+        held[kind] = _hold_counts(kind, card, meta, launches)
+        counters.append(card)
+        if kind == "count":
+            count_meta = meta
+    bound_check = _kernel_bytes_vs_bounds(counters, curve)
+    card_s = time.perf_counter() - t_phase
+
+    # --- shares of the measured steps ---------------------------------------
+    shares = {}
+    full = dataclasses.replace(published, n_layers=lm["n_layers"])
+    shares["lm_serve_prefill"] = _share(
+        full, pre_shape, count_cell(full, pre_shape), lm["prefill_s"])
+    shares["lm_serve_decode"] = _share(
+        full, dec_shape, count_cell(full, dec_shape),
+        lm["decode_s_per_step"])
+    tcfg = dataclasses.replace(published, n_layers=train["n_layers"])
+    tshape = ShapeConfig("train_4k_cut", train["seq_len"],
+                         train["global_batch"], "train")
+    shares["lm_train"] = _share(tcfg, tshape, count_cell(tcfg, tshape),
+                                train["s_per_step"])
+    ms = shares["lm_train"]["memory_stats"]
+    shares["lm_train"]["counted_peak_bytes"] = (
+        ms["argument_size_in_bytes"] + ms["temp_size_in_bytes"])
+    shares["lm_train"]["measured_peak_bytes"] = train["peak_device_bytes"]
+    shares["lm_train"]["counted_over_measured_peak"] = (
+        shares["lm_train"]["counted_peak_bytes"]
+        / train["peak_device_bytes"])
+    shares["main_count_batch"] = _share(None, None, {
+        "counter": count_meta, "seconds": 0.0,
+        "memory_stats": {"argument_size_in_bytes": tensor_bytes(
+            (dataclasses.astuple(arrays), queries))}},
+        served["batch_s"])
+    res = {"phase": "cost_model", "card": CARD, "held": held,
+           "kernel_bytes_vs_bound": bound_check,
+           "ceilings": {"peak_flops": rl.PEAK_FLOPS, "hbm_bw": rl.HBM_BW,
+                        "link_bw": rl.LINK_BW},
+           "shares": shares,
+           "reduced": {"held_lm_layers": [COST_LM_LAYERS,
+                                          published.n_layers]},
+           "card_counts_s": card_s,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(res)
+    for name, sh in shares.items():
+        check(sh["roofline_share"] <= SHARE_LIMIT
+              and (sh["mfu"] is None or sh["mfu"] <= SHARE_LIMIT),
+              f"cost_model: {name} reads a share above {SHARE_LIMIT} "
+              f"(mfu {sh['mfu']}, roofline_share {sh['roofline_share']})")
     return res
 
 
@@ -3323,7 +3606,7 @@ def main(argv=None) -> int:
     ap.add_argument("--store-rows", type=int, default=None,
                     help="rows of the store's segment (default: all of "
                          "--osm-rows)")
-    ap.add_argument("--serve-seconds", type=float, default=1.0,
+    ap.add_argument("--serve-seconds", type=float, default=0.5,
                     help="seconds of offered load at each serving rate")
     ap.add_argument("--router-shards", type=int, default=4,
                     help="shard Databases of the router phase")
@@ -3334,7 +3617,8 @@ def main(argv=None) -> int:
                          "phase (default: all six)")
     ap.add_argument("--lm-train-layers", type=int, default=None,
                     help="layers of the trained qwen3-4b (default: the "
-                         "most the card's memory takes)")
+                         "most the card's memory takes, at most "
+                         f"{LM_TRAIN_MAX_LAYERS})")
     args = ap.parse_args(argv)
 
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -3371,6 +3655,7 @@ def main(argv=None) -> int:
     kern["sfc_encode_pool"] = phase_pool_kernel(smbo, int_ops_per_s)
     main_res = phase_main(osm, args.batches, main_curve)
     pw_res = phase_piecewise(nyc, args.batches, pw_curve)
+    pw_res.pop("_served")
     db_res = phase_database(osm, args.batches, args.seed, main_res)
     phase_dp_paging(nyc, pw_curve, args.dp_prefix)
     db, traffic = db_res.pop("db"), db_res.pop("traffic")
@@ -3389,6 +3674,7 @@ def main(argv=None) -> int:
     families = phase_lm_families(
         args.seed, args.lm_families.split(",") if args.lm_families else None)
     train = phase_lm_train(args.seed, args.lm_train_layers)
+    cost = phase_cost_model(args.seed, main_res.pop("_served"), lm, train)
 
     rows = []
     for name, source, replaces in KERNEL_ROWS:
@@ -3428,6 +3714,8 @@ def main(argv=None) -> int:
         row["lm_families_launches"] = {
             arch: n[name] for arch, n in families["launches"].items()}
         row["lm_train_launches"] = train["launches"][name]
+        row["cost_model_calls"] = sum(
+            h["kernel_calls"].get(name, 0) for h in cost["held"].values())
         if name in ("window_filter", "window_match", "sfc_encode"):
             check(row["store_launches"] > 0 and row["serving_launches"] > 0,
                   f"{name} was not launched by the store or the server")

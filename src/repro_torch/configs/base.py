@@ -1,14 +1,17 @@
 """Architecture + shape configuration schema.
 
 Every assigned architecture is a frozen ArchConfig; shapes are the four
-assigned (seq_len, global_batch, kind) cells.  The reference's
-``input_specs`` (ShapeDtypeStruct stand-ins for the TPU dry-run) has no
-counterpart here.
+assigned (seq_len, global_batch, kind) cells.  `input_specs` gives a
+step's batch as (shape, dtype) pairs (the reference's ShapeDtypeStruct
+stand-ins for the dry run), and `spec_tensors` makes them tensors, on
+``meta`` by default (nothing allocated).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,3 +140,45 @@ def shape_applicable(cfg: ArchConfig, shape: ShapeConfig) -> bool:
     if shape.name == "long_500k":
         return cfg.sub_quadratic
     return True
+
+
+# ---------------------------------------------------------------------------
+# dry-run input specs (shape and dtype only — never allocates)
+# ---------------------------------------------------------------------------
+
+
+class TensorSpec(NamedTuple):
+    shape: tuple
+    dtype: torch.dtype
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict:
+    """The batch a step of `shape` takes, as `TensorSpec`s under the
+    reference's keys: tokens, the VLM's positions and image embeddings,
+    the enc-dec's encoder embeddings; decode adds ``cur_len``."""
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    bf16 = torch.bfloat16
+    D = cfg.d_model
+    if shape.kind in ("train", "prefill"):
+        specs = {"tokens": TensorSpec((B, S), i32)}
+        if cfg.family == "vlm":
+            specs["positions"] = TensorSpec((B, S, 3), i32)
+            specs["image_embeds"] = TensorSpec((B, cfg.n_image_tokens, D),
+                                               bf16)
+        if cfg.family == "encdec":
+            specs["enc_embeds"] = TensorSpec((B, S // cfg.enc_seq_div, D),
+                                             bf16)
+        return specs
+    # decode: one new token against a seq_len-sized state
+    specs = {"tokens": TensorSpec((B, 1), i32),
+             "cur_len": TensorSpec((), i32)}
+    if cfg.family == "vlm":
+        specs["positions"] = TensorSpec((B, 1, 3), i32)
+    return specs
+
+
+def spec_tensors(specs: dict, device="meta") -> dict:
+    """Empty tensors of `specs`' shapes and dtypes on `device`."""
+    return {k: torch.empty(v.shape, dtype=v.dtype, device=device)
+            for k, v in specs.items()}

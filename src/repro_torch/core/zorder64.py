@@ -91,6 +91,16 @@ def z64_eq(a, b):
     return (a[..., 0] == b[..., 0]) & (a[..., 1] == b[..., 1])
 
 
+def z64_max(a, b):
+    take_a = z64_lt(b, a)
+    return torch.where(take_a[..., None], a, b)
+
+
+def z64_min(a, b):
+    take_a = z64_lt(a, b)
+    return torch.where(take_a[..., None], a, b)
+
+
 # ---------------------------------------------------------------------------
 # Z64 arithmetic (mod 2^64)
 # ---------------------------------------------------------------------------
@@ -111,6 +121,14 @@ def z64_add(a, b):
     lo = alo + blo
     carry = lo >> 32
     return torch.stack([i32_of(ahi + bhi + carry), i32_of(lo)], dim=-1)
+
+
+def z64_to_f32(z):
+    """Approximate float32 magnitude (for cost heuristics only): each
+    unsigned word rounded to float32, then hi * 2^32 + lo in float32."""
+    hi = u32_of(z[..., 0]).to(torch.float32)
+    lo = u32_of(z[..., 1]).to(torch.float32)
+    return hi * 2.0**32 + lo
 
 
 # ---------------------------------------------------------------------------

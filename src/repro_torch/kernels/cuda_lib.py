@@ -9,9 +9,16 @@ never loaded.  Nothing is built or loaded at import time.
 
 `LAUNCHES` counts kernel launches per wrapper; a wrapper adds one right
 where it launches and nowhere else.
+
+A wrapper also reports each call to the step counter active in its
+thread (`dist.hlo_analysis.StepCounter`), if any, through `count_kernel`:
+one op with the kernel's work, on the card or on ``meta`` tensors, where
+it allocates the outputs and launches nothing.  Without a counter this is
+one thread-local read a call.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -54,6 +61,8 @@ _SIGNATURES = {
                                   _INT, _INT, _INT, _INT, _INT, _VP),
 }
 
+_counter = threading.local()   # .active: the thread's step counter
+
 _lib = None
 _lib_lock = threading.Lock()   # one build and bind a process, whichever
                                # thread (a serving drain thread) comes first
@@ -62,6 +71,33 @@ _lib_lock = threading.Lock()   # one build and bind a process, whichever
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def set_step_counter(counter):
+    """Make `counter` this thread's active step counter (None: none);
+    returns the one it replaces."""
+    prev = getattr(_counter, "active", None)
+    _counter.active = counter
+    return prev
+
+
+def count_kernel(key: str, work) -> None:
+    """Report one call of kernel `key` to the active step counter, if any:
+    `work()` gives its (flops, bytes, input shapes, outputs)."""
+    counter = getattr(_counter, "active", None)
+    if counter is not None:
+        with counter.quiet():
+            flops, nbytes, shapes, out = work()
+        counter.record_kernel(key, flops, nbytes, shapes, out)
+
+
+def uncounted():
+    """A context in which the active step counter, if any, records no op:
+    a wrapper's own bookkeeping (its cached tables) is part of its one
+    counted call."""
+    counter = getattr(_counter, "active", None)
+    return counter.quiet() if counter is not None else \
+        contextlib.nullcontext()
 
 
 def _nvcc() -> str:
@@ -155,9 +191,17 @@ def check_cuda_int32(name: str, t: torch.Tensor, ndim: int) -> None:
     check_cuda(name, t, torch.int32, ndim)
 
 
+def on_card(t: torch.Tensor) -> bool:
+    """Whether a wrapper launches for `t`: a CUDA tensor.  The other
+    device its kernel route takes is ``meta`` (shapes alone: outputs
+    allocated, nothing launched)."""
+    return t.device.type == "cuda"
+
+
 def check_cuda(name: str, t: torch.Tensor, dtype, ndim: int) -> None:
-    """Raise unless `t` is a contiguous `dtype` CUDA tensor of rank `ndim`."""
-    if t.device.type != "cuda":
+    """Raise unless `t` is a contiguous `dtype` CUDA (or meta) tensor of
+    rank `ndim`."""
+    if t.device.type not in ("cuda", "meta"):
         raise ValueError(f"{name} must be a CUDA tensor; got {t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}; got {t.dtype}")

@@ -18,6 +18,11 @@ Two kernels, chosen by dtype (`plan_flash_attention`):
   tensor-core products in TF32 with each operand split into two TF32
   parts (three products a product, float32-accurate), fed by cp.async,
   on contiguous, 16-byte-aligned (B·H, S, dh) and (B·KH, S, dh) copies.
+
+On ``meta`` tensors the kernel route plans as on a card, allocates o with
+the strides the card's o would have, and launches nothing (a shape-only
+run).  On either device a call is one op to an active step counter, with
+the function's work (`flash_work`), never the twin's.
 """
 from __future__ import annotations
 
@@ -53,6 +58,27 @@ class FlashPlan:
     S: int
     dh: int
     strides: tuple      # bf16: (q, k, v), each (batch, head, row)
+
+
+def visible_pairs(S: int, causal: bool, window: int) -> int:
+    """(row, col) pairs one head's softmax sees under the masks: row r
+    sees cols [max(r - window + 1, 0), r + 1) when causal, else up to S."""
+    full = S * S
+    if causal:
+        if window <= 0 or window >= S:
+            return S * (S + 1) // 2
+        return window * (window + 1) // 2 + (S - window) * window
+    if window <= 0 or window >= S:
+        return full
+    return full - (S - window) * (S - window + 1) // 2
+
+
+def flash_work(B: int, H: int, KH: int, S: int, dh: int, esize: int,
+               causal: bool, window: int) -> tuple:
+    """(flops, bytes) of the attention: 4*dh flops per visible pair and
+    query head (QK^T and PV), and q, k, v and o moved once."""
+    flops = 4 * dh * B * H * visible_pairs(S, causal, window)
+    return flops, (2 * B * H + 2 * B * KH) * S * dh * esize
 
 
 def _tma_strides(name: str, t: torch.Tensor) -> tuple:
@@ -124,7 +150,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if backend == "torch" or q.device.type == "cpu":
         return mha_ref(q, k, v, causal=causal, window=window)
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda":
+        if t.device.type not in ("cuda", "meta"):
             raise ValueError(f"{name} must be a CUDA tensor; got {t.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError(
@@ -137,15 +163,19 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if not o.numel():
         return o
     B, H, KH, S, dh = plan.B, plan.H, plan.KH, plan.S, plan.dh
-    ptrs = (plan.q.data_ptr(), plan.k.data_ptr(), plan.v.data_ptr(),
-            o.data_ptr())
-    if plan.kernel == "flash_attention":
-        cuda_lib.launch("flash_attention_launch", *ptrs, B * H, B * KH, S,
-                        dh, int(bool(causal)), int(window))
-    else:
-        strides = plan.strides + (_tma_strides("o", o),)
-        arr = (ctypes.c_longlong * 12)(*(s for t in strides for s in t))
-        cuda_lib.launch("flash_attention_tc_launch", *ptrs, arr, B, H, KH, S,
-                        dh, int(bool(causal)), int(window))
-    cuda_lib.LAUNCHES[plan.kernel] += 1
+    if cuda_lib.on_card(q):
+        ptrs = (plan.q.data_ptr(), plan.k.data_ptr(), plan.v.data_ptr(),
+                o.data_ptr())
+        if plan.kernel == "flash_attention":
+            cuda_lib.launch("flash_attention_launch", *ptrs, B * H, B * KH,
+                            S, dh, int(bool(causal)), int(window))
+        else:
+            strides = plan.strides + (_tma_strides("o", o),)
+            arr = (ctypes.c_longlong * 12)(*(s for t in strides for s in t))
+            cuda_lib.launch("flash_attention_tc_launch", *ptrs, arr, B, H,
+                            KH, S, dh, int(bool(causal)), int(window))
+        cuda_lib.LAUNCHES[plan.kernel] += 1
+    cuda_lib.count_kernel(plan.kernel, lambda: (
+        *flash_work(B, H, KH, S, dh, q.element_size(), causal, window),
+        (tuple(q.shape), tuple(k.shape), tuple(v.shape)), o))
     return o

@@ -6,6 +6,9 @@ twin.  The curve reaches the kernel as data: its nibble lookup tables
 (`core.curve.curve_lut`, `core.sfc.lut_tables`) and region bits, so one
 compiled kernel serves global and piecewise curves alike, one curve or a
 whole pool.  `plan_encode` picks where the kernel reads the tables from.
+On ``meta`` tensors the kernel route allocates the outputs and launches
+nothing (a shape-only run); on either device each call is one op to an
+active step counter (`encode_work`), its table look-ups uncounted.
 """
 from __future__ import annotations
 
@@ -69,6 +72,27 @@ def _plan(n: int, P: int, table_bytes: int, staged: bool,
                       table_bytes)
 
 
+def encode_work(n: int, d: int, K: int, R: int, M: int, P: int = 1,
+                shared: bool = True) -> int:
+    """Bytes an encode of n points under P curves must move: the points in
+    once (once per pool when shared), the Z64 out once per curve, and each
+    curve's R*d*K bit positions and M live region bits (4 bytes each).
+    The lookup tables are derived from the positions, so not counted."""
+    return ((1 if shared else P) * n * d * 4 + P * n * 8
+            + P * (R * d * K + M) * 4)
+
+
+def _live_region_bits(reg, T: int) -> int:
+    """The most live region bits (entries below T) of any curve of a
+    (P, M) table; every entry when the table holds shapes only."""
+    if isinstance(reg, torch.Tensor):
+        if reg.device.type == "meta":
+            return int(reg.shape[-1])
+        reg = reg.cpu()
+    reg = torch.as_tensor(reg).reshape(-1, reg.shape[-1])
+    return int((reg < T).sum(1).max()) if reg.numel() else 0
+
+
 def _check_backend(backend: str) -> None:
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}; got {backend!r}")
@@ -108,17 +132,24 @@ def sfc_encode(x, curve, *, backend: str = "cuda"):
     n, d = x.shape
     if d != curve.d:
         raise ValueError(f"x has {d} dims; the curve has {curve.d}")
-    _, reg = curve_tables(curve, x.device)
-    lut = curve_lut(curve, x.device)
+    with cuda_lib.uncounted():
+        _, reg = curve_tables(curve, x.device)
+        lut = curve_lut(curve, x.device)
     _check_tables(reg[None], lut[None], 1, d, curve.K)
     out = torch.empty((n, 2), dtype=torch.int32, device=x.device)
     if n:
         R = lut.shape[0]
-        plan = plan_encode(n, 1, R, d, curve.K, _sms(x.device))
-        cuda_lib.launch("sfc_encode_launch", x.data_ptr(), lut.data_ptr(),
-                        reg.data_ptr(), out.data_ptr(), n, d, curve.K, R,
-                        reg.shape[0], plan.placement == "smem", plan.blocks)
-        cuda_lib.LAUNCHES["sfc_encode"] += 1
+        if cuda_lib.on_card(x):
+            plan = plan_encode(n, 1, R, d, curve.K, _sms(x.device))
+            cuda_lib.launch("sfc_encode_launch", x.data_ptr(),
+                            lut.data_ptr(), reg.data_ptr(), out.data_ptr(),
+                            n, d, curve.K, R, reg.shape[0],
+                            plan.placement == "smem", plan.blocks)
+            cuda_lib.LAUNCHES["sfc_encode"] += 1
+        cuda_lib.count_kernel("sfc_encode", lambda: (
+            0, encode_work(n, d, curve.K, R, _live_region_bits(
+                curve_tables(curve, "cpu")[1], d * curve.K)),
+            (tuple(x.shape),), out))
     return out
 
 
@@ -134,7 +165,8 @@ def sfc_encode_pool(x, curves, *, backend: str = "cuda"):
     if backend == "torch" or x.device.type == "cpu":
         return sfc_encode_pool_ref(x, pool)
     cuda_lib.check_cuda_int32("x", x, 3 if x.dim() == 3 else 2)
-    reg, lut = pool_tables(pool, x.device)
+    with cuda_lib.uncounted():
+        reg, lut = pool_tables(pool, x.device)
     P = len(pool)
     n, d = x.shape[-2:]
     if x.dim() == 3 and x.shape[0] != P:
@@ -145,11 +177,16 @@ def sfc_encode_pool(x, curves, *, backend: str = "cuda"):
     out = torch.empty((P, n, 2), dtype=torch.int32, device=x.device)
     if n and P:
         R = lut.shape[1]
-        plan = plan_encode(n, P, R, d, pool.K, _sms(x.device))
-        x_stride = n * d if x.dim() == 3 else 0
-        cuda_lib.launch("sfc_encode_pool_launch", x.data_ptr(), x_stride,
-                        lut.data_ptr(), reg.data_ptr(), out.data_ptr(), n, d,
-                        pool.K, R, reg.shape[1], P, plan.placement == "smem",
-                        plan.blocks)
-        cuda_lib.LAUNCHES["sfc_encode_pool"] += 1
+        if cuda_lib.on_card(x):
+            plan = plan_encode(n, P, R, d, pool.K, _sms(x.device))
+            x_stride = n * d if x.dim() == 3 else 0
+            cuda_lib.launch("sfc_encode_pool_launch", x.data_ptr(),
+                            x_stride, lut.data_ptr(), reg.data_ptr(),
+                            out.data_ptr(), n, d, pool.K, R, reg.shape[1], P,
+                            plan.placement == "smem", plan.blocks)
+            cuda_lib.LAUNCHES["sfc_encode_pool"] += 1
+        cuda_lib.count_kernel("sfc_encode_pool", lambda: (
+            0, encode_work(n, d, pool.K, R, _live_region_bits(
+                pool.reg, d * pool.K), P, shared=x.dim() == 2),
+            (tuple(x.shape),), out))
     return out

@@ -2,7 +2,10 @@
 
 ``backend="cuda"`` launches the CUDA kernel for CUDA tensors and uses the
 plain-torch twin only for CPU tensors; ``backend="torch"`` always uses the
-twin.  There is no fallback from a CUDA tensor to the twin.
+twin.  There is no fallback from a CUDA tensor to the twin.  On ``meta``
+tensors the kernel route allocates the kernel's outputs and launches
+nothing (a shape-only run); on either device each call is one op to an
+active step counter (`filter_work`).
 """
 from __future__ import annotations
 
@@ -33,6 +36,21 @@ def _check(pts, rect, size) -> tuple:
     return G, d, cap
 
 
+def filter_work(G: int, d: int, cap: int, out_bytes: int) -> int:
+    """Bytes a filter call of G pages moves with every slot valid: the
+    points, rectangles and sizes in once, `out_bytes` out.  (The bound in
+    `chip_smoke.py` counts only the valid slots of its data; this count is
+    from shapes alone, so a shape-only run gives it too.)"""
+    return G * d * cap * 4 + G * d * 2 * 4 + G * 4 + out_bytes
+
+
+def _count(key: str, pts, rect, size, out) -> None:
+    G, d, cap = pts.shape
+    cuda_lib.count_kernel(key, lambda: (
+        0, filter_work(G, d, cap, out.numel() * out.element_size()),
+        (tuple(pts.shape), tuple(rect.shape), tuple(size.shape)), out))
+
+
 def window_filter(pts, rect, size, *, backend: str = "cuda"):
     """pts: (G, d, cap) int32; rect: (G, d, 2); size: (G,) -> (G,) int32."""
     if _use_ref(pts, backend):
@@ -40,10 +58,12 @@ def window_filter(pts, rect, size, *, backend: str = "cuda"):
     G, d, cap = _check(pts, rect, size)
     out = torch.empty(G, dtype=torch.int32, device=pts.device)
     if G:
-        cuda_lib.launch("window_filter_launch", pts.data_ptr(),
-                        rect.data_ptr(), size.data_ptr(), out.data_ptr(),
-                        G, d, cap)
-        cuda_lib.LAUNCHES["window_filter"] += 1
+        if cuda_lib.on_card(pts):
+            cuda_lib.launch("window_filter_launch", pts.data_ptr(),
+                            rect.data_ptr(), size.data_ptr(), out.data_ptr(),
+                            G, d, cap)
+            cuda_lib.LAUNCHES["window_filter"] += 1
+        _count("window_filter", pts, rect, size, out)
     return out
 
 
@@ -55,8 +75,10 @@ def window_match(pts, rect, size, *, backend: str = "cuda"):
     G, d, cap = _check(pts, rect, size)
     out = torch.empty((G, cap), dtype=torch.bool, device=pts.device)
     if G:
-        cuda_lib.launch("window_match_launch", pts.data_ptr(),
-                        rect.data_ptr(), size.data_ptr(), out.data_ptr(),
-                        G, d, cap)
-        cuda_lib.LAUNCHES["window_match"] += 1
+        if cuda_lib.on_card(pts):
+            cuda_lib.launch("window_match_launch", pts.data_ptr(),
+                            rect.data_ptr(), size.data_ptr(), out.data_ptr(),
+                            G, d, cap)
+            cuda_lib.LAUNCHES["window_match"] += 1
+        _count("window_match", pts, rect, size, out)
     return out

@@ -19,13 +19,35 @@ import torch.nn.functional as F
 # ---------------------------------------------------------------------------
 
 
+class ShapeOnly:
+    """Stands in for a generator on the ``meta`` device (where torch has
+    none): `normal` then makes tensors of the right shapes and dtypes with
+    no data, the counterpart of ``jax.eval_shape`` over an init."""
+    device = torch.device("meta")
+
+
+def generator(device: torch.device, seed: int):
+    """A seeded `torch.Generator` on `device`, or `ShapeOnly` on meta."""
+    if device.type == "meta":
+        return ShapeOnly()
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def normal(gen, shape) -> torch.Tensor:
+    """float32 standard normals of `shape` from `gen` on its device (no
+    data on meta)."""
+    if isinstance(gen, ShapeOnly):
+        return torch.empty(shape, dtype=torch.float32, device=gen.device)
+    return torch.randn(shape, generator=gen, device=gen.device,
+                       dtype=torch.float32)
+
+
 def dense(gen: torch.Generator, d_in: int, d_out: int,
           dtype=torch.bfloat16, scale=None) -> torch.Tensor:
     """(d_in, d_out) normal weights times `scale` (default d_in^-0.5),
     drawn in float32 on the generator's device from `gen`, then cast."""
     scale = scale if scale is not None else d_in ** -0.5
-    w = torch.randn((d_in, d_out), generator=gen, device=gen.device,
-                    dtype=torch.float32)
+    w = normal(gen, (d_in, d_out))
     return (w.mul_(scale)).to(dtype)
 
 
@@ -117,7 +139,8 @@ ACTS = {
 
 def rope_freqs(dh: int, theta: float = 10000.0):
     """(dh/2,) float64 numpy, as the reference computes them; a float32
-    `torch.pow` gives other angles at theta = 1e6."""
+    `torch.pow` gives other angles at theta = 1e6.  Callers round them to
+    float32 on the host, so a device gets them in one upload."""
     return 1.0 / (theta ** (np.arange(0, dh, 2) / dh))
 
 
@@ -132,7 +155,7 @@ def _rotate(x, ang):
 def apply_rope(x, positions, theta: float = 10000.0):
     """x: (B, S, H, dh); positions: (B, S) int32."""
     dh = x.shape[-1]
-    freqs = torch.as_tensor(rope_freqs(dh, theta), dtype=torch.float32,
+    freqs = torch.as_tensor(rope_freqs(dh, theta).astype(np.float32),
                             device=x.device)
     ang = positions[..., None].float() * freqs       # (B, S, dh/2)
     return _rotate(x, ang)
@@ -142,7 +165,7 @@ def apply_mrope(x, positions, sections, theta: float = 10000.0):
     """Qwen2-VL M-RoPE: positions (B, S, 3) = (t, h, w); `sections` gives the
     per-component share of the dh/2 frequency slots (sum == dh/2)."""
     dh = x.shape[-1]
-    freqs = torch.as_tensor(rope_freqs(dh, theta), dtype=torch.float32,
+    freqs = torch.as_tensor(rope_freqs(dh, theta).astype(np.float32),
                             device=x.device)
     total = float(sum(sections))
     # each of the dh/2 frequency slots reads the position component whose

@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .common import dense, rms_norm, silu
+from .common import dense, normal, rms_norm, silu
 
 
 def init_mamba2(gen, cfg) -> dict:
@@ -26,8 +26,7 @@ def init_mamba2(gen, cfg) -> dict:
     N = cfg.ssm_state
     conv_dim = Di + 2 * N
     dev = gen.device
-    conv_w = torch.randn((cfg.ssm_conv, conv_dim), generator=gen,
-                         device=dev, dtype=torch.float32)
+    conv_w = normal(gen, (cfg.ssm_conv, conv_dim))
     # in_proj -> [z, x, B, C, dt]
     return {
         "w_in": dense(gen, D, 2 * Di + 2 * N + H),

@@ -32,7 +32,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..core.device import resolve_device
 from .attention import (attn_kv_only, attn_q_only, attn_qkv,
                         attention_layer, decode_attention, init_attention)
-from .common import (dense, layer_list, layer_slice, rms_norm,
+from .common import (dense, generator, layer_list, layer_slice, rms_norm,
                      softmax_xent, stack_init)
 from .mamba2 import init_mamba2, mamba2_decode_step, mamba2_forward
 from .mamba2 import mamba2_init_state
@@ -128,9 +128,11 @@ def init_model(cfg, *, seed: int = 0, device=None) -> dict:
     cast at once (bf16, or float32 for mamba2's `A_log`, `dt_bias` and
     `D_skip`).  The numbers differ from the reference's `jax.random` ones;
     to compare the two, carry the reference's tree across with
-    `core.convert.lm_params_from_numpy`."""
+    `core.convert.lm_params_from_numpy`.  On ``device="meta"`` it draws
+    nothing: every tensor has its shape and dtype and no data (the
+    reference's ``jax.eval_shape(init_model)``)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = generator(dev, seed)
     Vp, D = cfg.vocab_padded, cfg.d_model
     p = {"embed": dense(gen, Vp, D, scale=0.02),
          "final_norm": _ones(gen, cfg)}
@@ -320,9 +322,9 @@ def lm_loss(params, cfg, batch, *, backend="torch"):
     labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
     mask = torch.ones(labels.shape, dtype=torch.float32,
                       device=labels.device)
-    mask[:, -1] = 0.0
+    mask[:, -1].zero_()
     if cfg.family == "vlm":     # image prefix carries no LM loss
-        mask[:, :cfg.n_image_tokens] = 0.0
+        mask[:, :cfg.n_image_tokens].zero_()
     return softmax_xent(logits, labels, mask), aux
 
 

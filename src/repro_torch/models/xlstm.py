@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from .common import dense, rms_norm, silu
+from .common import dense, normal, rms_norm, silu
 from .mamba2 import causal_conv, softplus
 
 NEG_INF = -1e30
@@ -126,8 +126,7 @@ def init_mlstm_block(gen, cfg) -> dict:
     Di = 2 * D
     H = cfg.n_heads
     p = {"w_up": dense(gen, D, 2 * Di)}
-    conv_w = torch.randn((4, Di), generator=gen, device=gen.device,
-                         dtype=torch.float32)
+    conv_w = normal(gen, (4, Di))
     p["conv_w"] = (conv_w * 0.2).to(torch.bfloat16)
     p["w_q"] = dense(gen, Di, Di)
     p["w_k"] = dense(gen, Di, Di)
@@ -210,8 +209,7 @@ def init_slstm_block(gen, cfg) -> dict:
     D, H = cfg.d_model, cfg.n_heads
     dh = D // H
     p = {"w_gates": dense(gen, D, 4 * D)}
-    r = torch.randn((H, dh, 4 * dh), generator=gen, device=gen.device,
-                    dtype=torch.float32)
+    r = normal(gen, (H, dh, 4 * dh))
     p["r_gates"] = (r * dh ** -0.5).to(torch.bfloat16)
     p["w_out"] = dense(gen, D, D)
     p["norm_w"] = torch.ones(D, dtype=torch.bfloat16, device=gen.device)

@@ -55,3 +55,13 @@ def test_multi_shard_slice_modules_are_covered():
               "repro_torch.api.exec.router", "repro_torch.api.engines",
               "repro_torch.core.serve", "repro_torch.serving.server"):
         assert m in MODULES, m
+
+
+def test_cost_model_modules_are_covered():
+    """The analyzer and step counter, the roofline and the dry-run tools
+    are among the modules imported above with JAX and `repro` blocked."""
+    for m in ("repro_torch.dist.hlo_analysis", "repro_torch.dist.roofline",
+              "repro_torch.launch.dryrun", "repro_torch.launch.report",
+              "repro_torch.launch.attribute",
+              "repro_torch.launch.reanalyze"):
+        assert m in MODULES, m

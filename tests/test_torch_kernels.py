@@ -253,18 +253,44 @@ def test_curve_pool_from_numpy_is_the_ports_packing():
         curve_pool_from_numpy(rpool.pos[0], rpool.reg, 3, 12)
 
 
-def test_wrappers_refuse_unknown_backends_and_devices():
-    """No fallback: a tensor that is neither on the CPU nor on a CUDA
-    device is refused, never handed to the plain twin."""
+def test_wrappers_refuse_unknown_backends_and_devices(monkeypatch):
+    """No fallback: a tensor that is not on the CPU is never handed to the
+    plain twin.  A meta tensor (shapes only) takes the kernel route, which
+    allocates the kernel's outputs there and launches nothing; a tensor
+    on any other device than the CPU, a card or meta is refused."""
+    import types
+    from repro_torch.kernels.sfc_encode import ops as enc_ops
+    from repro_torch.kernels.window_filter import ops as wf_ops
+
+    def twin(*a, **k):
+        raise AssertionError("handed to the twin")
+    for mod, name in ((wf_ops, "window_filter_ref"),
+                      (wf_ops, "window_match_ref"),
+                      (enc_ops, "sfc_encode_ref"),
+                      (enc_ops, "sfc_encode_pool_ref")):
+        monkeypatch.setattr(mod, name, twin)
     pts = torch.zeros((2, 2, 8), dtype=torch.int32, device="meta")
     rect = torch.zeros((2, 2, 2), dtype=torch.int32, device="meta")
     size = torch.zeros(2, dtype=torch.int32, device="meta")
     x = torch.zeros((4, 2), dtype=torch.int32, device="meta")
     curve = tc.default_curve(2, 32)
-    for call in (lambda: window_filter(pts, rect, size),
-                 lambda: window_match(pts, rect, size),
-                 lambda: sfc_encode(x, curve),
-                 lambda: sfc_encode_pool(x, [curve, curve])):
+    before = dict(cuda_lib.LAUNCHES)
+    for call, shape, dtype in (
+            (lambda: window_filter(pts, rect, size), (2,), torch.int32),
+            (lambda: window_match(pts, rect, size), (2, 8), torch.bool),
+            (lambda: sfc_encode(x, curve), (4, 2), torch.int32),
+            (lambda: sfc_encode_pool(x, [curve, curve]), (2, 4, 2),
+             torch.int32)):
+        out = call()
+        assert (out.device.type, tuple(out.shape), out.dtype) == \
+            ("meta", shape, dtype)
+    assert cuda_lib.LAUNCHES == before
+    other = types.SimpleNamespace(device=torch.device("xpu"), dtype=torch.int32,
+                                  shape=(2, 2, 8), dim=lambda: 3)
+    for call in (lambda: window_filter(other, rect, size),
+                 lambda: window_match(other, rect, size),
+                 lambda: sfc_encode(other, curve),
+                 lambda: sfc_encode_pool(other, [curve, curve])):
         with pytest.raises(ValueError, match="CUDA tensor"):
             call()
     cpu = torch.zeros((2, 2, 8), dtype=torch.int32)
