@@ -184,12 +184,27 @@ no result.  Phases, each printing one JSON line:
    and `useful_flops_ratio`; lm_train's counted argument and temporary
    bytes stand beside its measured peak.  Every share must be at most
    1.05;
-18. launch check: every kernel ran on each path, the window and encode
+18. lm_mesh: the LM on a torch `DeviceMesh`: a one-rank NCCL group (an
+   in-process store) and a 1 x 1 mesh over it, destroyed at the end of
+   the phase; no collective crosses cards.  A qwen3-4b prefill at
+   published widths and 4 layers (4 x 2,048 tokens, the bf16 flash
+   kernel on each rank's heads: 4 launches) through `make_prefill_step(
+   ..., mesh=)` equal bit for bit to the unsharded step's logits and
+   caches, its `StepCounter` count on the card equal to its count on
+   meta with 0 collective wire bytes; 4 decode steps from its caches
+   under `decode_state_specs` placements, bit for bit; granite-moe at
+   full depth (2 x 2,048) with the shard-map dispatch within atol 0.15 /
+   rtol 0.1 of the global dispatch with the same drop fraction; one
+   qwen3-4b train step (4 layers, 8 x 4,096, microbatch 8) with its loss
+   within a relative 1e-6 and its params and AdamW state bit for bit, no
+   kernel launched; the sharded params checkpointed and restored with
+   ``shardings=`` byte for byte.  At most 45 s;
+19. launch check: every kernel ran on each path, the window and encode
    kernels in the store and serving phases too, `window_filter` and
    `sfc_encode` in the distributed and router phases, `window_match` in
    the router and pipeline phases, `flash_attention_tc` in every
-   attention family; no kernel in lm_train's timed steps; each kernel's
-   calls in cost_model beside its row.
+   attention family and in lm_mesh; no kernel in lm_train's timed
+   steps; each kernel's calls in cost_model beside its row.
 
 The line before the last lists the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero without
@@ -3574,6 +3589,329 @@ def phase_cost_model(seed: int, served: dict, lm: dict,
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the LM mesh, a 1 x 1 DeviceMesh over a one-rank NCCL group
+# ---------------------------------------------------------------------------
+
+LM_MESH_LAYERS = 4             # qwen3-4b's depth here (cost_model's)
+LM_MESH_DECODE = 4             # sharded decode steps from the prefill
+LM_MESH_MOE = ("granite-moe-3b-a800m", 2, 2048)   # full depth, B, S
+LM_MESH_LOSS_RTOL = 1e-6       # sharded train loss against the unsharded
+# The shard-map dispatch combines its k choices in float32 (as the
+# reference's does), the global one in bf16: 32 layers on, a few tokens
+# route another way, and the drop fraction moves (measured 2.7e-4
+# relative).  On one layer's shared input the same pairs drop, exactly.
+LM_MESH_DROP_RTOL = 1e-3
+LM_MESH_LAYER_CF = 0.5         # the one-layer check's capacity: pairs drop
+LM_MESH_LIMIT_S = 45.0         # the phase's time on the card
+
+
+def _locals_equal(a, b) -> bool:
+    """Every leaf of `a` (DTensors) equal, bit for bit, to `b`'s."""
+    from repro_torch.optim.adamw import tree_leaves
+    return all(x.to_local().equal(y) for x, y in zip(tree_leaves(a),
+                                                      tree_leaves(b)))
+
+
+def phase_lm_mesh(seed: int) -> dict:
+    """The LM mesh on the card: a one-rank NCCL group (an in-process
+    store) and a 1 x 1 `DeviceMesh` over it, destroyed at the end.  Every
+    spec but FSDP's is replicated there and every collective is over one
+    rank, so the sharded steps (DTensor params, the shard_map shim, the
+    placements, NCCL) must equal the unsharded ones bit for bit: (a) a
+    qwen3-4b prefill (published widths, LM_MESH_LAYERS layers, LM_BATCH x
+    LM_PROMPT tokens, the bf16 flash kernel, LM_MESH_LAYERS launches) and
+    its StepCounter count on the card against the same step on meta
+    (equal, collective wire bytes 0); (b) LM_MESH_DECODE decode steps
+    from its caches under `decode_state_specs`; (c) granite-moe at full
+    depth with ``moe_dispatch="shardmap"`` (2 x 2,048 tokens) within
+    LM_BAR of the global dispatch, its drop fraction within
+    LM_MESH_DROP_RTOL, and one MoE layer on a shared input dropping the
+    same pairs exactly (one shard holds the global capacity); (d) one qwen3-4b train step
+    (LM_MESH_LAYERS layers, LM_TRAIN_BATCH x LM_TRAIN_SEQ tokens,
+    microbatch 8) with its loss within LM_MESH_LOSS_RTOL and its params
+    bit for bit, no kernel launched; (e) the sharded params (and the
+    step counter) checkpointed and restored with ``shardings=`` byte for
+    byte.  Launch counts are reset just before each sharded run and read
+    just after."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.ckpt.checkpoint import (restore_checkpoint,
+                                             save_checkpoint)
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch.mesh import init_group, make_host_mesh
+    from repro_torch.dist.compat import to_dtensor
+    from repro_torch.models.moe import moe_ffn, moe_ffn_shardmap, moe_specs
+    from repro_torch.models.transformer import (forward, init_decode_state,
+                                                init_model)
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.train.steps import (bind_runtime, make_decode_step,
+                                         make_prefill_step, make_rules,
+                                         make_train_step, shard_params)
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dev = torch.device(DEVICE)
+    sub_s, launches, held = {}, {}, {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        sub_s[name] = time.perf_counter() - t
+        return out
+
+    def run(name, fn):
+        """`fn()` with the launch counts reset just before and read just
+        after, its seconds in `sub_s`."""
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        sub_s[name] = time.perf_counter() - t
+        launches[name] = dict(cuda_lib.LAUNCHES)
+        return out
+
+    t = time.perf_counter()
+    init_group(DEVICE)
+    try:
+        mesh = make_host_mesh(1, 1)
+        sub_s["group"] = time.perf_counter() - t
+        check(type(mesh).__name__ == "DeviceMesh"
+              and mesh.device_type == dev.type,
+              f"lm_mesh: make_host_mesh gave {mesh!r}")
+
+        # (a) the prefill, and its count on the card against meta
+        t = time.perf_counter()
+        cfg = dataclasses.replace(get_arch(LM_ARCH), n_layers=LM_MESH_LAYERS)
+        B, S = LM_BATCH, LM_PROMPT
+        params = init_model(cfg, seed=seed, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(seed + 1)
+        batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                         device=dev)}
+        shape = ShapeConfig("lm_prefill", S, B, "prefill")
+        plain = make_prefill_step(cfg, shape, device=dev)
+        step = make_prefill_step(cfg, shape, mesh=mesh)
+        sp = shard_params(params, step.in_shardings[0])
+        l0, c0 = plain(params, batch)
+        step(sp, batch)                                  # warm
+        sub_s["prefill_setup"] = time.perf_counter() - t
+        timed("prefill_unsharded", lambda: plain(params, batch))
+        l1, c1 = run("prefill", lambda: step(sp, batch))
+        prefill_equal = (l1.to_local().equal(l0) and set(c1) == set(c0)
+                         and all(c1[k].to_local().equal(c0[k]) for k in c0))
+        t = time.perf_counter()
+        _, card, card_launches = _count(step, sp, batch)
+        meta_params = shard_params(init_model(cfg, device="meta"),
+                                   step.in_shardings[0])
+        _, meta, _ = _count(step, meta_params, _on_meta(batch))
+        held["prefill"] = _hold_counts("lm_mesh prefill", card, meta,
+                                       card_launches)
+        counted = card.analyze()
+        held["prefill"]["wire_bytes"] = counted["wire_bytes"]
+        held["prefill"]["collectives"] = counted["collectives"]
+        sub_s["counts"] = time.perf_counter() - t
+        del meta_params, card, meta
+
+        # (b) decode from the prefill's caches
+        T = S + LM_MESH_DECODE
+        dshape = ShapeConfig("lm_decode", T, B, "decode")
+        dplain = make_decode_step(cfg, dshape, device=dev)
+        dstep = make_decode_step(cfg, dshape, mesh=mesh)
+        s0 = init_decode_state(cfg, T, B, device=dev)
+        for k in c0:
+            s0[k][..., :S, :].copy_(c0[k])
+        s1 = shard_params(s0, dstep.in_shardings[2])
+        tok = l0.argmax(-1)
+        decode_equal, sharded = True, []
+        for i in range(LM_MESH_DECODE):
+            db = {"tokens": tok, "cur_len": S + i}
+            a, _ = dplain(params, db, s0)
+            b, _ = run(f"decode_{i}", lambda: dstep(sp, db, s1))
+            decode_equal &= b.to_local().equal(a)
+            tok = a.argmax(-1)
+        state_equal = _locals_equal(s1, s0)
+        del params, sp, s0, s1, c0, c1, l0, l1, plain, step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) the shard-map MoE at full depth against the global dispatch
+        t = time.perf_counter()
+        arch, mB, mS = LM_MESH_MOE
+        mcfg = dataclasses.replace(get_arch(arch), moe_dispatch="shardmap")
+        gcfg = dataclasses.replace(mcfg, moe_dispatch="global")
+        mp = init_model(mcfg, seed=seed, device=dev)
+        mbatch = {"tokens": torch.randint(0, mcfg.vocab, (mB, mS),
+                                          generator=gen, device=dev)}
+        bound = bind_runtime(mcfg, mesh, mB)
+        rules = make_rules(bound, mesh)
+        msp = shard_params(mp, make_prefill_step(
+            mcfg, ShapeConfig("moe", mS, mB, "prefill"),
+            mesh=mesh).in_shardings[0])
+        with torch.no_grad():
+            forward(msp, bound, mbatch, rules, mesh)     # warm
+            forward(mp, gcfg, mbatch)
+            sub_s["moe_setup"] = time.perf_counter() - t
+            g_logits, g_aux, _ = timed("moe_prefill_global", lambda: forward(
+                mp, gcfg, mbatch))
+            g_last, g_drop = g_logits[:, -1].float(), g_aux["moe_drop_frac"]
+            del g_logits
+            s_logits, s_aux, _ = run("moe_prefill", lambda: forward(
+                msp, bound, mbatch, rules, mesh))
+            s_local = s_logits.to_local()
+            s_last, s_drop = s_local[:, -1].float(), s_aux["moe_drop_frac"]
+            # one MoE layer on the same input, its capacity cut to drop
+            # pairs: one shard holds the global capacity, so the same pairs
+            # drop
+            x = (torch.randn((mB, mS, mcfg.d_model), generator=gen,
+                             device=dev) * 0.3).to(torch.bfloat16)
+            lp = {k: v[0] for k, v in mp["blocks"]["moe"].items()}
+            ms = moe_specs(bound, rules)
+            y1, d1 = moe_ffn_shardmap(
+                {k: to_dtensor(v, mesh, ms[k]) for k, v in lp.items()},
+                bound, to_dtensor(x, mesh, rules.act_hidden(mB)), mesh,
+                rules, capacity_factor=LM_MESH_LAYER_CF)
+            y0, d0 = moe_ffn(lp, bound, x, capacity_factor=LM_MESH_LAYER_CF)
+            layer = {"drop_frac": (float(d1), float(d0)),
+                     "max_abs_err": (y1.to_local().float()
+                                     - y0.float()).abs().max().item(),
+                     "within_bar": torch.allclose(
+                         y1.to_local().float(), y0.float(), **LM_BAR)}
+        moe_err = (s_last - g_last).abs().max().item()
+        moe_within = torch.allclose(s_last, g_last, **LM_BAR)
+        moe_drops = (float(s_drop), float(g_drop))
+        del mp, msp, s_logits, s_local, x, y0, y1
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) one train step, sharded and not, on the same weights
+        t = time.perf_counter()
+        tcfg = dataclasses.replace(get_arch(LM_TRAIN_ARCH),
+                                   n_layers=LM_MESH_LAYERS)
+        tshape = ShapeConfig("train_4k_cut", LM_TRAIN_SEQ, LM_TRAIN_BATCH,
+                             "train")
+        opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1)
+        p0 = init_model(tcfg, seed=seed, device=dev)
+        o0 = init_opt_state(p0)
+        tstep = make_train_step(tcfg, tshape, opt_cfg, mesh=mesh)
+        p1 = shard_params(p0, tstep.in_shardings[0])
+        o1 = shard_params(o0, tstep.in_shardings[1])
+        tbatch = {"tokens": torch.randint(0, tcfg.vocab,
+                                          (LM_TRAIN_BATCH, LM_TRAIN_SEQ),
+                                          generator=gen, device=dev)}
+        sub_s["train_setup"] = time.perf_counter() - t
+        plain_train = make_train_step(tcfg, tshape, opt_cfg, device=dev)
+        _, _, m0 = timed("train_unsharded", lambda: plain_train(p0, o0,
+                                                                 tbatch))
+        _, _, m1 = run("train", lambda: tstep(p1, o1, tbatch))
+        loss = (float(m1["loss"]), float(m0["loss"]))
+        loss_rel = abs(loss[0] - loss[1]) / abs(loss[1])
+        params_equal = _locals_equal(p1, p0)
+        opt_equal = _locals_equal(o1, o0)
+        opt_step = o1["step"]
+        del p0, o0, o1
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (e) the sharded params and step checkpointed and restored
+        t = time.perf_counter()
+        ckpt = ROOT / "build" / "lm_mesh_ckpt"
+        shutil.rmtree(ckpt, ignore_errors=True)
+        tree = {"params": p1, "opt": {"step": opt_step}}
+        save_checkpoint(str(ckpt), 1, tree, keep=1)
+        sh = {"params": tstep.in_shardings[0],
+              "opt": {"step": tstep.in_shardings[1]["step"]}}
+        back, manifest = restore_checkpoint(str(ckpt), 1, tree,
+                                            shardings=sh)
+        ckpt_equal = (_locals_equal(back, _to_local_tree(tree))
+                      and manifest["step"] == 1)
+        ckpt_bytes = sum(f.stat().st_size for f in ckpt.rglob("*.npy"))
+        shutil.rmtree(ckpt, ignore_errors=True)
+        sub_s["checkpoint"] = time.perf_counter() - t
+        del p1, back, tree
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    total = {}
+    for name, n in launches.items():
+        _add(total, n)
+    res = {"phase": "lm_mesh", "card": CARD, "mesh": "1x1 DeviceMesh, "
+           "one-rank NCCL group (in-process store)",
+           "arch": LM_ARCH, "n_layers": LM_MESH_LAYERS,
+           "prefill_tokens": [B, S], "decode_steps": LM_MESH_DECODE,
+           "moe": {"arch": arch, "tokens": [mB, mS],
+                   "max_abs_err_last": moe_err, "within_bar": moe_within,
+                   "drop_frac": moe_drops, "drop_frac_rel": abs(
+                       moe_drops[0] - moe_drops[1]) / moe_drops[1],
+                   "one_layer": layer},
+           "train": {"tokens": [LM_TRAIN_BATCH, LM_TRAIN_SEQ],
+                     "microbatch": tcfg.microbatch, "loss": loss,
+                     "loss_rel": loss_rel, "params_equal": params_equal,
+                     "opt_state_equal": opt_equal},
+           "prefill_equal": prefill_equal, "decode_equal": decode_equal,
+           "state_equal": state_equal, "checkpoint_equal": ckpt_equal,
+           "checkpoint_bytes": ckpt_bytes, "counts": held,
+           "launches": total, "launches_by_run": launches,
+           "sub_s": sub_s, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "reduced": {"n_layers": [LM_MESH_LAYERS, get_arch(LM_ARCH).n_layers],
+                       "checkpoint": "params and step (the AdamW state "
+                                     "left out for the phase's time)"},
+           "phase_s": phase_s}
+    emit(res)
+    flash = "flash_attention_tc"
+    check(launches["prefill"].get(flash, 0) == LM_MESH_LAYERS
+          and sum(launches["prefill"].values()) == LM_MESH_LAYERS,
+          f"lm_mesh: the sharded prefill launched {launches['prefill']}; "
+          f"expected {LM_MESH_LAYERS} {flash}")
+    check(launches["moe_prefill"].get(flash, 0) == get_arch(arch).n_layers,
+          f"lm_mesh: the shard-map MoE prefill launched "
+          f"{launches['moe_prefill']}")
+    check(sum(launches["train"].values()) == 0
+          and all(sum(launches[f"decode_{i}"].values()) == 0
+                  for i in range(LM_MESH_DECODE)),
+          f"lm_mesh: the train step or a decode step launched a kernel "
+          f"{launches}")
+    check(prefill_equal, "lm_mesh: the sharded prefill's logits or caches "
+                         "differ from the unsharded prefill's")
+    check(held["prefill"]["wire_bytes"] == 0,
+          f"lm_mesh: {held['prefill']['wire_bytes']} wire bytes counted on "
+          f"a 1 x 1 mesh")
+    check(decode_equal and state_equal,
+          "lm_mesh: the sharded decode differs from the unsharded decode")
+    check(moe_within and abs(moe_drops[0] - moe_drops[1])
+          <= LM_MESH_DROP_RTOL * moe_drops[1],
+          f"lm_mesh: shard-map MoE off the global dispatch by {moe_err} "
+          f"(drop fractions {moe_drops})")
+    check(layer["within_bar"]
+          and layer["drop_frac"][0] == layer["drop_frac"][1] > 0,
+          f"lm_mesh: one shard-map MoE layer against the global one: "
+          f"{layer}")
+    check(loss_rel <= LM_MESH_LOSS_RTOL,
+          f"lm_mesh: sharded train loss {loss} (relative {loss_rel})")
+    check(params_equal and opt_equal,
+          "lm_mesh: the sharded train step's params or AdamW state differ "
+          "from the unsharded step's")
+    check(ckpt_equal, "lm_mesh: the restored checkpoint differs")
+    check(phase_s <= LM_MESH_LIMIT_S,
+          f"lm_mesh: {phase_s:.1f} s, past {LM_MESH_LIMIT_S} s")
+    return res
+
+
+def _to_local_tree(t):
+    if isinstance(t, dict):
+        return {k: _to_local_tree(v) for k, v in t.items()}
+    return t.to_local()
+
+
 KERNEL_ROWS = (
     ("window_filter", "src/repro_torch/csrc/window_filter.cu",
      "src/repro/kernels/window_filter/kernel.py:72"),
@@ -3675,6 +4013,7 @@ def main(argv=None) -> int:
         args.seed, args.lm_families.split(",") if args.lm_families else None)
     train = phase_lm_train(args.seed, args.lm_train_layers)
     cost = phase_cost_model(args.seed, main_res.pop("_served"), lm, train)
+    mesh = phase_lm_mesh(args.seed)
 
     rows = []
     for name, source, replaces in KERNEL_ROWS:
@@ -3714,6 +4053,7 @@ def main(argv=None) -> int:
         row["lm_families_launches"] = {
             arch: n[name] for arch, n in families["launches"].items()}
         row["lm_train_launches"] = train["launches"][name]
+        row["lm_mesh_launches"] = mesh["launches"].get(name, 0)
         row["cost_model_calls"] = sum(
             h["kernel_calls"].get(name, 0) for h in cost["held"].values())
         if name in ("window_filter", "window_match", "sfc_encode"):
@@ -3731,8 +4071,10 @@ def main(argv=None) -> int:
         if name == "flash_attention_tc":
             check(all(n > 0 for arch, n in
                       row["lm_families_launches"].items()
-                      if arch != "xlstm-125m"),
-                  f"{name} was not launched by every attention family")
+                      if arch != "xlstm-125m")
+                  and row["lm_mesh_launches"] > 0,
+                  f"{name} was not launched by every attention family "
+                  f"and the mesh phase")
         if name == "flash_attention_tc":
             row["lm_families_shapes"] = {
                 arch: {label: {key: r[key] for key in (

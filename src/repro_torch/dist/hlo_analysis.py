@@ -60,6 +60,7 @@ from dataclasses import dataclass, field
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
+from torch.distributed.tensor import DTensor
 from torch.utils.flop_counter import flop_registry
 
 from ..kernels import cuda_lib
@@ -623,10 +624,11 @@ def _nbytes(t: torch.Tensor) -> int:
 def _meta_key(x):
     """A hashable stand-in for an argument: a tensor by its metadata, a
     sequence element by element; raises `_Uncacheable` for anything else
-    (a tensor off meta, an object)."""
+    (a tensor off meta, a tensor subclass such as a DTensor, whose op runs
+    its own dispatch, an object)."""
     if isinstance(x, torch.Tensor):
-        if x.device.type != "meta":
-            raise _Uncacheable
+        if x.device.type != "meta" or type(x) is not torch.Tensor:
+            raise _Uncacheable      # off meta, or a subclass (a DTensor)
         return ("T", tuple(x.shape), x.stride(), x.dtype)
     if isinstance(x, (list, tuple)):
         return (type(x).__name__,) + tuple(_meta_key(v) for v in x)
@@ -689,9 +691,21 @@ def _build(spec):
     return spec[0](_build(p) for p in spec[1:])
 
 
+def _locals(tree):
+    """`tree` with every DTensor replaced by its local block."""
+    if isinstance(tree, DTensor):
+        return tree._local_tensor
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_locals(v) for v in tree)
+    if isinstance(tree, dict):
+        return {k: _locals(v) for k, v in tree.items()}
+    return tree
+
+
 def tensor_bytes(tree) -> int:
-    """Bytes of every tensor in a nested dict / list / tuple."""
-    return sum(_nbytes(t) for t in _tensors(tree))
+    """Bytes of every tensor in a nested dict / list / tuple (of a DTensor,
+    its local block: one rank's bytes)."""
+    return sum(_nbytes(getattr(t, "_local_tensor", t)) for t in _tensors(tree))
 
 
 def _host_transfer(func, args, out) -> bool:
@@ -777,24 +791,31 @@ class StepCounter(TorchDispatchMode):
         if func in _META_QUERIES:
             return NotImplemented
         info = _info(func)
-        if info.decomposes and func not in _PRIM_DEVICE:
-            # an op with a composite decomposition is counted through its
-            # parts, as FlopCounterMode counts it
-            with self:
-                r = func.decompose(*args, **kwargs)
-            if r is not NotImplemented:
-                return r
-        if info.cacheable:
-            out = self._meta.run(func, args, kwargs)
+        result = None
+        if any(issubclass(t, DTensor) for t in types):
+            # DTensor runs the op on its local blocks out of this mode's
+            # sight: it is counted as that local op (one rank's work)
+            result = func(*args, **kwargs)
+            args, kwargs, out = _locals((args, kwargs, result))
         else:
-            out = func(*args, **kwargs)
+            if info.decomposes and func not in _PRIM_DEVICE:
+                # an op with a composite decomposition is counted through
+                # its parts, as FlopCounterMode counts it
+                with self:
+                    r = func.decompose(*args, **kwargs)
+                if r is not NotImplemented:
+                    return r
+            if info.cacheable:
+                out = self._meta.run(func, args, kwargs)
+            else:
+                out = func(*args, **kwargs)
         rets = out if len(info.fresh) > 1 else (out,)
         fresh = [t for r, f in zip(rets, info.fresh) if f
                  for t in _tensors(r)]
         self._track(fresh)
         if (self._quiet or info.view or func in _FREE
                 or _host_transfer(func, args, out)):
-            return out
+            return out if result is None else result
         ins = _tensors((args, kwargs))
         in_bytes = sum(_nbytes(t) for t in ins)
         out_bytes = sum(_nbytes(t) for t in fresh)
@@ -815,7 +836,7 @@ class StepCounter(TorchDispatchMode):
         self._add(info.name, flops, nbytes,
                   lambda: tuple(tuple(t.shape) for t in ins), w,
                   info.collective)
-        return out
+        return out if result is None else result
 
     def _add(self, name, flops, nbytes, shapes, wire=0.0,
              collective=None) -> None:

@@ -18,10 +18,19 @@ so we never emit a non-divisible spec.  Head counts are the exception:
 attention correctness couples the head axis to the model axis, so a head
 count that neither divides nor is divided by ``model_size`` (no clean
 TP split *and* no clean replication group) raises ``ValueError``.
+
+On a torch `DeviceMesh` a spec becomes one DTensor placement a mesh
+dimension (`placements`): ``Shard(d)`` on each mesh axis that tensor dim
+`d` names, ``Replicate()`` elsewhere.  A tuple entry such as ``("pod",
+"data")`` shards its dim over both axes, the outer one first (JAX's
+major-to-minor order), so the axes of a tuple must come in the mesh's
+order.
 """
 from __future__ import annotations
 
 import dataclasses
+
+from torch.distributed.tensor import Replicate, Shard
 
 
 class P(tuple):
@@ -149,3 +158,42 @@ class ShardingRules:
     def tokens(self, batch: int) -> P:
         """(B, S) int32 token ids."""
         return P(self.batch_ax(batch), None)
+
+
+# ---------------------------------------------------------------------------
+# specs on a DeviceMesh
+# ---------------------------------------------------------------------------
+
+
+def placements(mesh, spec) -> tuple:
+    """The DTensor placements of `spec` on `mesh`: one a mesh dimension."""
+    names = tuple(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        for a in axes:
+            if a not in names:
+                raise ValueError(f"{spec}: no mesh axis {a!r} in {names}")
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"{spec}: the axes of {entry} must come in the "
+                             f"mesh's order {names}")
+        for i in idx:
+            if out[i] != Replicate():
+                raise ValueError(f"{spec}: mesh axis {names[i]!r} named "
+                                 f"twice")
+            out[i] = Shard(d)
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh (``jax.sharding.NamedSharding``)."""
+    mesh: object
+    spec: P
+
+    @property
+    def placements(self) -> tuple:
+        return placements(self.mesh, self.spec)

@@ -6,6 +6,7 @@ Usage:
   python -m repro_torch.launch.dryrun --arch lmsfc-serve
   python -m repro_torch.launch.dryrun --arch qwen3-4b --shape prefill_32k \\
       --device cuda --overrides '{"n_layers": 4}'
+  python -m repro_torch.launch.dryrun --all --mesh pod|multipod
 
 The reference lowers and compiles each cell's XLA program on a 256- or
 512-device mesh of fake CPU devices and analyzes its HLO.  The port has no
@@ -25,12 +26,20 @@ counted run's seconds, and `compile_s`, 0) and, unless
 ``REPRO_SAVE_HLO=0``, the step's op log beside it
 (``<out>/ops/<cell>.ops.json.gz``, the counterpart of the saved HLO).
 
-The port's dry run is 1x1 (one card, ``--mesh host``) until the LM mesh is
-ported: ``--mesh pod|multipod`` raises (ROADMAP Queue 1 item 3).
+``--mesh pod`` (16 x 16) and ``--mesh multipod`` (2 x 16 x 16) count one
+chip's share of the sharded step: the process joins the ``fake`` process
+group as rank 0 of 256 or 512 (`launch.mesh.init_fake_group`; its
+collectives move nothing and return at once), builds the production
+`DeviceMesh`, places the meta params, optimizer state, batch and decode
+state under the step's shardings (rank 0's blocks), and runs the sharded
+step (`models.spmd`) under the same `StepCounter`.  The record's flops
+and bytes are one chip's; its collectives are priced with the ring
+formulas over each collective's group.  ``--mesh host`` is one card.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gzip
 import json
@@ -47,25 +56,39 @@ from ..dist import roofline as rl
 from ..dist.hlo_analysis import StepCounter, count_step, tensor_bytes
 from ..models.transformer import init_decode_state, init_model
 from ..optim.adamw import AdamWConfig, init_opt_state
-from ..train.steps import make_decode_step, make_prefill_step, make_train_step
+from ..train.steps import (make_decode_step, make_prefill_step,
+                           make_train_step, shard_params)
 
-MESHES = {"host": "1x1"}
-PRODUCTION_MESHES = {"pod": "16x16", "multipod": "2x16x16"}
+MESHES = {"host": "1x1", "pod": "16x16", "multipod": "2x16x16"}
+CHIPS = {"host": 1, "pod": 256, "multipod": 512}
 SKIP_REASON = "full-attention arch: no sub-quadratic long-context path"
 
 
 def mesh_label(mesh: str) -> str:
-    """The record's mesh label; the production meshes are not ported."""
-    if mesh in PRODUCTION_MESHES:
-        raise NotImplementedError(
-            f"--mesh {mesh} ({PRODUCTION_MESHES[mesh]}) needs the LM mesh "
-            f"(param_and_opt_shardings, make_production_mesh), not ported "
-            f"yet: ROADMAP Queue 1 item 3.  The port's dry run is 1x1 "
-            f"(--mesh host).")
+    """The record's mesh label."""
     if mesh not in MESHES:
-        raise ValueError(f"unknown mesh {mesh!r}; one of "
-                         f"{sorted(MESHES) + sorted(PRODUCTION_MESHES)}")
+        raise ValueError(f"unknown mesh {mesh!r}; one of {sorted(MESHES)}")
     return MESHES[mesh]
+
+
+@contextlib.contextmanager
+def production_mesh(mesh: str):
+    """The `DeviceMesh` of ``pod`` / ``multipod`` (None for ``host``) over
+    the current process group, or over the fake group joined here as rank
+    0 and left again on exit."""
+    import torch.distributed as dist
+    from .mesh import init_fake_group, make_production_mesh
+    if mesh == "host":
+        yield None
+        return
+    made = not dist.is_initialized()
+    if made:
+        init_fake_group(CHIPS[mesh])
+    try:
+        yield make_production_mesh(multi_pod=mesh == "multipod")
+    finally:
+        if made:
+            dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------
@@ -101,26 +124,37 @@ def step_batch(cfg: ArchConfig, shape: ShapeConfig, device, seed: int = 0):
 
 
 def count_cell(cfg: ArchConfig, shape: ShapeConfig, *, device="meta",
-               seed: int = 0, op_log: bool = False) -> dict:
+               seed: int = 0, op_log: bool = False, mesh=None) -> dict:
     """Build a cell's step and its inputs on `device` and run it once under
     a `StepCounter`.  Returns the counter, the step's memory stats and the
     counted run's seconds.  Prefill serves through the kernels
     (``backend="cuda"``: on meta a kernel call is its shapes alone);
-    training runs the plain torch walk, as the train step must."""
+    training runs the plain torch walk, as the train step must.  With a
+    `mesh` (a `DeviceMesh`) the step is the sharded one and its inputs
+    this rank's blocks; the counts are this rank's."""
     dev = torch.device(device)
     params = init_model(cfg, seed=seed, device=dev)
     batch = step_batch(cfg, shape, dev, seed)
     if shape.kind == "train":
+        step = make_train_step(cfg, shape, AdamWConfig(), device=dev,
+                               mesh=mesh)
+        if mesh is not None:
+            params = shard_params(params, step.in_shardings[0])
         opt = init_opt_state(params)
-        step = make_train_step(cfg, shape, AdamWConfig(), device=dev)
         args = (params, opt, batch)
     elif shape.kind == "prefill":
-        step = make_prefill_step(cfg, shape, device=dev, backend="cuda")
+        step = make_prefill_step(cfg, shape, device=dev, backend="cuda",
+                                 mesh=mesh)
+        if mesh is not None:
+            params = shard_params(params, step.in_shardings[0])
         args = (params, batch)
     else:
+        step = make_decode_step(cfg, shape, device=dev, mesh=mesh)
         state = init_decode_state(cfg, shape.seq_len, shape.global_batch,
                                   device=dev)
-        step = make_decode_step(cfg, shape, device=dev)
+        if mesh is not None:
+            params = shard_params(params, step.in_shardings[0])
+            state = shard_params(state, step.in_shardings[2])
         args = (params, batch, state)
     arg_bytes = tensor_bytes(args)
     t0 = time.perf_counter()
@@ -185,12 +219,13 @@ def dryrun_cell(arch: str, shape_name: str, mesh: str = "host",
         _write(out_dir, rec)
         return rec
 
-    run = count_cell(cfg, shape, device=device, op_log=True)
+    with production_mesh(mesh) as dmesh:
+        run = count_cell(cfg, shape, device=device, op_log=True, mesh=dmesh)
     counter = run["counter"]
     save_op_log(out_dir, _cell_name(arch, shape_name, label), counter)
     roof = rl.analyze(counter.analyze(), run["memory_stats"])
     mf = rl.model_flops(cfg, shape)
-    chips = 1
+    chips = CHIPS[mesh]
     rec = {
         "arch": arch, "shape": shape_name, "mesh": label,
         "status": "ok", "chips": chips, "device": str(device),
@@ -249,21 +284,47 @@ def query_rects(q_batch: int, d: int, device="meta", seed: int = 0):
     return torch.stack([lo, hi], -1).to(torch.int32).to(dev)
 
 
+def _count_serve(fn, arrays, queries, dmesh):
+    """`count_step` of the query fn; on a mesh, with the final reduction
+    of the int32 counts over every chip."""
+    if dmesh is None:
+        return count_step(fn, arrays, queries, op_log=True)
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as fc
+
+    def reduce(t):
+        red = fc.all_reduce(t, "sum", dist.group.WORLD)
+        return red.wait() if isinstance(red, fc.AsyncCollectiveTensor) \
+            else red
+
+    def fn_and_reduce(arrays, queries):
+        out = fn(arrays, queries)       # the counts, and the overflow counts
+        return tuple(map(reduce, out)) if isinstance(out, tuple) \
+            else reduce(out)
+    return count_step(fn_and_reduce, arrays, queries, op_log=True)
+
+
 def dryrun_lmsfc_serve(mesh: str = "host",
                        out_dir: str = "results/dryrun_torch",
-                       n_pages: int = 2**22 // 256, cap: int = 1024,
+                       n_pages: int = None, cap: int = 1024,
                        d: int = 2, q_batch: int = 1024, max_cand: int = 64,
                        q_chunk: int = 16, k_maxsplit: int = 4,
                        device: str = "meta", verbose: bool = True):
-    """Count one Count batch of `core.serve.make_query_fn` on one card's
-    share of the reference's pod cell: 2^22 pages over 256 chips is 16,384
-    pages of 1,024 points (16.8M points, 134 MB of coordinates), queries
-    replicated, under the z-order curve."""
+    """Count one Count batch of `core.serve.make_query_fn` on one chip's
+    share of the reference's cell (`n_pages` pages a chip; by default
+    2^22 pages over the 256 chips of a pod, 16,384 pages of 1,024 points,
+    16.8M points, 134 MB of coordinates, or over the 512 of ``multipod``),
+    queries replicated, under the z-order curve.  On ``pod`` /
+    ``multipod`` it adds the final reduction, the int32 counts (and
+    overflow counts) summed over every chip of the mesh."""
     from ..core.curve import as_curve
     from ..core.serve import make_query_fn
     from ..core.theta import default_K, zorder
 
     label = mesh_label(mesh)
+    chips = CHIPS[mesh]
+    if n_pages is None:
+        n_pages = 2**22 // max(chips, 256)
     curve = as_curve(zorder(d, default_K(d)))
     fn = make_query_fn(curve, k_maxsplit=k_maxsplit, max_cand=max_cand,
                        q_chunk=q_chunk, backend="cuda")
@@ -271,7 +332,8 @@ def dryrun_lmsfc_serve(mesh: str = "host",
     queries = query_rects(q_batch, d, device)
     arg_bytes = tensor_bytes((dataclasses.astuple(arrays), queries))
     t0 = time.perf_counter()
-    out, counter = count_step(fn, arrays, queries, op_log=True)
+    with production_mesh(mesh) as dmesh:
+        out, counter = _count_serve(fn, arrays, queries, dmesh)
     seconds = time.perf_counter() - t0
     shape = f"q{q_batch}_p{n_pages}_c{max_cand}_k{k_maxsplit}"
     save_op_log(out_dir, _cell_name("lmsfc-serve", shape, label), counter)
@@ -280,9 +342,10 @@ def dryrun_lmsfc_serve(mesh: str = "host",
         "output_size_in_bytes": tensor_bytes(out),
         "temp_size_in_bytes": counter.peak_bytes})
     rec = {"arch": "lmsfc-serve", "shape": shape, "mesh": label,
-           "status": "ok", "chips": 1, "device": str(device),
+           "status": "ok", "chips": chips, "device": str(device),
            "lower_s": round(seconds, 1), "compile_s": 0,
-           "roofline": roof.to_dict(), "global_points": n_pages * cap,
+           "roofline": roof.to_dict(),
+           "global_points": n_pages * cap * chips,
            "model_flops_total": 0, "model_flops_per_chip": 0,
            "useful_flops_ratio": 0,
            "kernel_calls": dict(counter.kernel_calls)}
@@ -296,8 +359,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
-    ap.add_argument("--mesh", default="host",
-                    choices=sorted(MESHES) + sorted(PRODUCTION_MESHES))
+    ap.add_argument("--mesh", default="host", choices=sorted(MESHES))
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default="results/dryrun_torch")
     ap.add_argument("--device", default="meta",

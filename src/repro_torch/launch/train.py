@@ -5,9 +5,15 @@
 
 Runs on one device: CUDA unless ``--device`` names another.  Features
 exercised: microbatch accumulation, AdamW, the LMSFC-indexed curriculum
-pipeline, checkpoint/restart and FT supervisor heartbeats.  A mesh of more
-than one device (``--data`` x ``--model``) waits for the LM mesh and is
-refused.
+pipeline, checkpoint/restart and FT supervisor heartbeats.
+
+Under ``torchrun --nproc-per-node N`` with ``--data D --model M`` (D·M =
+N) every rank joins the launcher's process group (NCCL on cards, gloo with
+``--device cpu``) and trains sharded over a (D, M) `DeviceMesh`: params
+and optimizer state are DTensors under the reference's specs, every rank
+draws the same batches and keeps its rows, rank 0 logs and writes the
+checkpoints (whole arrays, the same files), and ``--resume`` restores them
+onto the mesh, whatever its shape when they were written.
 
 Checkpoints are the reference's: params under ``--ckpt-dir``, the
 optimizer state under ``<ckpt-dir>/opt``, the pipeline state in both
@@ -23,6 +29,7 @@ import argparse
 import time
 
 import torch
+import torch.distributed as dist
 
 from ..ckpt.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from ..configs.base import ShapeConfig
@@ -32,9 +39,9 @@ from ..data.pipeline import (CurriculumPhase, IndexedDataset, TokenBatcher,
 from ..models.transformer import init_model
 from ..obs import log as obs_log
 from ..optim.adamw import AdamWConfig, init_opt_state
-from ..train.steps import make_train_step
+from ..train.steps import make_train_step, shard_params
 from .ft import Supervisor
-from .mesh import make_host_mesh
+from .mesh import init_group, is_device_mesh, make_host_mesh
 
 logger = obs_log.get_logger("launch.train")
 
@@ -67,17 +74,27 @@ def main(argv=None) -> list:
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
+    if args.data * args.model > 1 and not dist.is_initialized():
+        init_group(args.device)
     mesh = make_host_mesh(args.data, args.model, device=args.device)
-    if mesh.size > 1:
-        raise NotImplementedError(f"a {args.data} x {args.model} mesh: "
-                                  f"sharded training waits for the LM mesh")
-    dev = mesh.device
+    sharded = is_device_mesh(mesh)
+    if sharded:
+        dev = (torch.device("cuda", torch.cuda.current_device())
+               if mesh.device_type == "cuda" else torch.device("cpu"))
+        if dist.get_rank() != 0:
+            obs_log.get_logger("launch.train").setLevel("WARNING")
+    else:
+        dev = mesh.device
     shape = ShapeConfig("custom", args.seq, args.batch, "train")
     step_fn = make_train_step(cfg, shape, AdamWConfig(lr=1e-3,
                                                       warmup_steps=10),
-                              device=dev)
+                              device=dev, mesh=mesh if sharded else None)
 
     params = init_model(cfg, seed=0, device=dev)
+    shardings = (None, None)
+    if sharded:
+        shardings = step_fn.in_shardings[:2]
+        params = shard_params(params, shardings[0])
     opt = init_opt_state(params)
 
     # --- LMSFC-indexed curriculum pipeline -------------------------------
@@ -94,9 +111,12 @@ def main(argv=None) -> list:
     start = 0
     if args.resume and args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
         start = latest_step(args.ckpt_dir)
-        params, _ = restore_checkpoint(args.ckpt_dir, start, params, dev)
+        params, _ = restore_checkpoint(args.ckpt_dir, start, params,
+                                       None if sharded else dev,
+                                       shardings=shardings[0])
         opt, manifest = restore_checkpoint(args.ckpt_dir + "/opt", start,
-                                           opt, dev)
+                                           opt, None if sharded else dev,
+                                           shardings=shardings[1])
         if "pipeline" in manifest:
             batcher.set_state(manifest["pipeline"])
         if "pipeline_rng" in manifest:

@@ -140,6 +140,19 @@ def init_attention(gen, cfg) -> dict:
     return p
 
 
+def attention_specs(cfg, rules) -> dict:
+    """The reference's spec tree of `init_attention` (no tensors)."""
+    D, H, KH, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    s = {"wq": rules.dense_in_heads(D, H, H * dh),
+         "wk": rules.dense_in_heads(D, KH, KH * dh),
+         "wv": rules.dense_in_heads(D, KH, KH * dh),
+         "wo": rules.dense_out(H * dh, D)}
+    if cfg.qk_norm:
+        s["q_norm"] = rules.vector()
+        s["k_norm"] = rules.vector()
+    return s
+
+
 def attn_qkv(p, cfg, x, positions):
     """projections + qk-norm + rotary; returns q (B,S,H,dh), k/v (B,S,KH,dh).
     positions=None skips rotary (cross-attention)."""

@@ -2,8 +2,10 @@
 activations, rotary embeddings (incl. 3-section M-RoPE), the loss.
 
 Parameters are plain dicts of tensors shaped like the reference's param
-tree.  The reference's PartitionSpec trees (`with_spec`, the spec half of
-`stack_init`) have no counterpart: the port runs on one card.
+tree.  Their PartitionSpec trees are built from the config alone
+(`transformer.param_specs`; `stack_specs` is the spec half of the
+reference's `stack_init`), and `with_spec` places a DTensor activation on
+a mesh as the reference's sharding constraint does.
 """
 from __future__ import annotations
 
@@ -78,6 +80,27 @@ def stack_init(init_fn: Callable, n: int) -> dict:
     for i in range(1, n):
         fill(stacked, init_fn(), i)
     return stacked
+
+
+def stack_specs(specs):
+    """A layer's spec tree with a leading None (layer) dim on every spec,
+    as the reference's `stack_init` gives its stacked params."""
+    if isinstance(specs, dict):
+        return {k: stack_specs(v) for k, v in specs.items()}
+    from ..dist.sharding import P
+    return P(None, *specs)
+
+
+def with_spec(x, spec, mesh=None):
+    """`x` redistributed to `spec`'s placements on `mesh` (a DTensor); the
+    identity without a mesh, as the reference's constraint."""
+    if mesh is None:
+        return x
+    from ..dist.sharding import placements
+    pl = placements(mesh, spec)
+    if tuple(x.placements) == pl:
+        return x
+    return x.redistribute(mesh, pl)
 
 
 def layer_slice(tree: dict, i: int) -> dict:

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..dist.sharding import P
 from .common import dense, normal, rms_norm, silu
 
 
@@ -38,6 +39,18 @@ def init_mamba2(gen, cfg) -> dict:
         "D_skip": torch.ones(H, dtype=torch.float32, device=dev),
         "norm_w": torch.ones(Di, dtype=torch.bfloat16, device=dev),
     }
+
+
+def mamba2_specs(cfg, rules) -> dict:
+    """The reference's spec tree of `init_mamba2` (no tensors)."""
+    D = cfg.d_model
+    Di = cfg.ssm_expand * D
+    H = Di // cfg.ssm_headdim
+    N = cfg.ssm_state
+    return {"w_in": rules.dense_in(D, 2 * Di + 2 * N + H),
+            "w_out": rules.dense_out(Di, D), "conv_w": P(None, None),
+            "A_log": rules.vector(), "dt_bias": rules.vector(),
+            "D_skip": rules.vector(), "norm_w": rules.vector()}
 
 
 def softplus(x):

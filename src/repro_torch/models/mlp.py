@@ -13,6 +13,15 @@ def init_mlp(gen, cfg) -> dict:
     return {"w_in": dense(gen, D, Fd), "w_out": dense(gen, Fd, D)}
 
 
+def mlp_specs(cfg, rules) -> dict:
+    """The reference's spec tree of `init_mlp` (no tensors)."""
+    D, Fd = cfg.d_model, cfg.d_ff
+    if cfg.mlp_kind == "swiglu":
+        return {"w_gate": rules.dense_in(D, Fd), "w_up": rules.dense_in(D, Fd),
+                "w_down": rules.dense_out(Fd, D)}
+    return {"w_in": rules.dense_in(D, Fd), "w_out": rules.dense_out(Fd, D)}
+
+
 def mlp(p, cfg, x):
     if cfg.mlp_kind == "swiglu":
         return (ACTS["silu"](x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]

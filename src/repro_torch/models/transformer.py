@@ -30,17 +30,19 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..core.device import resolve_device
-from .attention import (attn_kv_only, attn_q_only, attn_qkv,
+from ..dist.sharding import P
+from .attention import (attention_specs, attn_kv_only, attn_q_only, attn_qkv,
                         attention_layer, decode_attention, init_attention)
 from .common import (dense, generator, layer_list, layer_slice, rms_norm,
-                     softmax_xent, stack_init)
-from .mamba2 import init_mamba2, mamba2_decode_step, mamba2_forward
-from .mamba2 import mamba2_init_state
-from .mlp import init_mlp, mlp
-from .moe import init_moe, moe_apply, xla_mean
+                     softmax_xent, stack_init, stack_specs)
+from .mamba2 import (init_mamba2, mamba2_decode_step, mamba2_forward,
+                     mamba2_init_state, mamba2_specs)
+from .mlp import init_mlp, mlp, mlp_specs
+from .moe import init_moe, moe_apply, moe_specs, xla_mean
 from .xlstm import (init_mlstm_block, init_slstm_block, mlstm_block,
-                    mlstm_block_decode, mlstm_block_init_state, slstm_block,
-                    slstm_block_decode, slstm_init_state)
+                    mlstm_block_decode, mlstm_block_init_state,
+                    mlstm_block_specs, slstm_block, slstm_block_decode,
+                    slstm_block_specs, slstm_init_state)
 
 
 def ssm_layer_names(cfg) -> list:
@@ -167,6 +169,51 @@ def init_model(cfg, *, seed: int = 0, device=None) -> dict:
     return p
 
 
+def _dense_block_specs(cfg, rules, cross: bool = False) -> dict:
+    s = {"ln1": rules.vector(), "attn": attention_specs(cfg, rules)}
+    if cross:
+        s["ln_x"] = rules.vector()
+        s["xattn"] = attention_specs(cfg, rules)
+    s["ln2"] = rules.vector()
+    if cfg.family == "moe" and not cross:
+        s["moe"] = moe_specs(cfg, rules)
+    else:
+        s["mlp"] = mlp_specs(cfg, rules)
+    return s
+
+
+def param_specs(cfg, rules) -> dict:
+    """The spec tree of `init_model`'s params under `rules`, from the config
+    alone: the reference's ``init_model(key, cfg, rules)[1]`` entry for
+    entry (stacked layers get a leading None)."""
+    Vp, D = cfg.vocab_padded, cfg.d_model
+    s = {"embed": rules.embed(Vp, D), "final_norm": rules.vector()}
+    if not cfg.tie_embeddings:
+        s["head"] = rules.dense_in(D, Vp)
+    fam = cfg.family
+    if fam in ("dense", "moe", "vlm"):
+        s["blocks"] = stack_specs(_dense_block_specs(cfg, rules))
+    elif fam == "ssm":
+        s["layers"] = {
+            name: {**(slstm_block_specs if name.endswith("s")
+                      else mlstm_block_specs)(cfg, rules),
+                   "ln": rules.vector()}
+            for name in ssm_layer_names(cfg)}
+    elif fam == "hybrid":
+        s["mamba"] = stack_specs({**mamba2_specs(cfg, rules),
+                                  "ln": rules.vector()})
+        s["shared_attn"] = _dense_block_specs(
+            dataclasses.replace(cfg, family="dense"), rules)
+    elif fam == "encdec":
+        s["enc_blocks"] = stack_specs(_dense_block_specs(cfg, rules))
+        s["dec_blocks"] = stack_specs(_dense_block_specs(cfg, rules,
+                                                         cross=True))
+        s["enc_norm"] = rules.vector()
+    else:
+        raise ValueError(fam)
+    return s
+
+
 def param_bytes(params: dict) -> int:
     """Bytes of a nested dict of tensors (params or decode state)."""
     return sum(param_bytes(v) if isinstance(v, dict)
@@ -225,13 +272,19 @@ def _store_kv(caches: dict, n: int, i: int, kv,
 # ---------------------------------------------------------------------------
 
 
-def forward(params, cfg, batch, *, backend="cuda", want_cache=False):
-    """batch: tokens (B,S) [+ positions (B,S) or (B,S,3) / image_embeds
+def forward(params, cfg, batch, rules=None, mesh=None, *, backend="cuda",
+            want_cache=False):
+    """With `rules` and a `DeviceMesh` `mesh`, the sharded forward of
+    `models.spmd` (params DTensors under `param_specs`).  batch: tokens (B,S) [+ positions (B,S) or (B,S,3) / image_embeds
     (B, n_image_tokens, D) / enc_embeds (B, Se, D)].  Returns (logits
     (B, S, Vp), aux_dict, caches | None); caches k/v are (L, B, KH, S, dh)
     (enc-dec adds cross_k/cross_v (L, B, KH, Se, dh); the hybrid family
     has one k/v a shared-block application; the SSM family none), written
     layer by layer into one tensor each, allocated at the first layer."""
+    if rules is not None and mesh is not None:
+        from . import spmd
+        return spmd.forward(params, cfg, batch, rules, mesh, backend=backend,
+                            want_cache=want_cache)
     tokens = batch["tokens"]
     B, S = tokens.shape
     h = params["embed"][tokens].to(torch.bfloat16)
@@ -311,12 +364,17 @@ def forward(params, cfg, batch, *, backend="cuda", want_cache=False):
     return _logits(params, cfg, h), aux, caches
 
 
-def lm_loss(params, cfg, batch, *, backend="torch"):
+def lm_loss(params, cfg, batch, rules=None, mesh=None, *, backend="torch"):
     """Next-token cross-entropy of `forward`: labels are the tokens rolled
     left by one, the last position masked (and, for VLM, the image
     prefix).  Returns (loss float32 0-d, aux_dict).  The default backend
     is the plain-torch walk: the flash kernel has no backward (nor has the
-    reference's), and its wrapper refuses autograd on a card."""
+    reference's), and its wrapper refuses autograd on a card.  On a mesh
+    (`rules` and `mesh`): `spmd.lm_loss`, whose loss is a DTensor partial
+    over the batch axes."""
+    if rules is not None and mesh is not None:
+        from . import spmd
+        return spmd.lm_loss(params, cfg, batch, rules, mesh, backend=backend)
     logits, aux, _ = forward(params, cfg, batch, backend=backend)
     tokens = batch["tokens"]
     labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
@@ -367,12 +425,46 @@ def init_decode_state(cfg, seq_len: int, batch: int, device=None) -> dict:
     raise ValueError(fam)
 
 
+def decode_state_specs(cfg, seq_len: int, batch: int, rules):
+    """(shape tree, spec tree) of the decode state: `init_decode_state` on
+    ``meta`` (shapes and dtypes, no data) and the reference's specs, by
+    the same path rules (KV caches, mamba2 SSM and conv states, mLSTM
+    matrix memories and convs; any other state batch-sharded)."""
+    state = init_decode_state(cfg, seq_len, batch, device="meta")
+    kv_l = P(None, *rules.kv_cache(batch, cfg.n_kv_heads))
+    mamba_heads = (cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim
+                   if cfg.ssm_headdim else 0)
+    bax = rules.batch_ax(batch)
+
+    def spec_of(names, leaf):
+        if any(n in ("k", "v", "cross_k", "cross_v") for n in names):
+            return kv_l
+        if "ssm" in names:
+            return P(None, *rules.ssm_state(batch, mamba_heads))
+        if "conv" in names and "mamba" in names:
+            return P(None, bax, None, None)
+        if "C" in names:
+            dk = 2 * cfg.d_model // cfg.n_heads
+            return P(*rules.mlstm_state(batch, cfg.n_heads, dk))
+        if "conv" in names:
+            return P(bax, None, None)
+        if leaf.dim() >= 1:
+            return P(bax, *([None] * (leaf.dim() - 1)))
+        return P()
+
+    def walk(tree, names):
+        return {k: walk(v, names + (k,)) if isinstance(v, dict)
+                else spec_of(names + (k,), v) for k, v in tree.items()}
+
+    return state, walk(state, ())
+
+
 def _write(state: dict, new: dict) -> None:
     for k, v in new.items():
         state[k].copy_(v)
 
 
-def decode_step(params, cfg, batch, state):
+def decode_step(params, cfg, batch, state, rules=None, mesh=None):
     """One decode step.  batch: tokens (B,1), cur_len int or int32 scalar
     (number of already-cached positions; the new token is written at index
     cur_len) [+ positions (B,1) or (B,1,3)].  Returns (logits (B,1,Vp),
@@ -380,7 +472,12 @@ def decode_step(params, cfg, batch, state):
 
     Unlike the reference (a new state from a donated one), the state is
     updated in place: `new_state` is `state`, its caches written at
-    ``cur_len`` by `index_copy_` and its recurrent states overwritten."""
+    ``cur_len`` by `index_copy_` and its recurrent states overwritten.
+    With `rules` and a `DeviceMesh` `mesh`: `spmd.decode_step` on DTensor
+    params and state (under `decode_state_specs`)."""
+    if rules is not None and mesh is not None:
+        from . import spmd
+        return spmd.decode_step(params, cfg, batch, state, rules, mesh)
     tokens = batch["tokens"]
     B = tokens.shape[0]
     cur = torch.as_tensor(batch["cur_len"], dtype=torch.int64,

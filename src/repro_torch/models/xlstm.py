@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from ..dist.sharding import P
 from .common import dense, normal, rms_norm, silu
 from .mamba2 import causal_conv, softplus
 
@@ -137,6 +138,16 @@ def init_mlstm_block(gen, cfg) -> dict:
     return p
 
 
+def mlstm_block_specs(cfg, rules) -> dict:
+    """The reference's spec tree of `init_mlstm_block` (no tensors)."""
+    D = cfg.d_model
+    Di, H = 2 * D, cfg.n_heads
+    return {"w_up": rules.dense_in(D, 2 * Di), "conv_w": P(None, None),
+            "w_q": rules.dense_in(Di, Di), "w_k": rules.dense_in(Di, Di),
+            "w_v": rules.dense_in(Di, Di), "w_if": rules.dense_in(Di, 2 * H),
+            "norm_w": rules.vector(), "w_down": rules.dense_out(Di, D)}
+
+
 def _mlstm_block_pre(p, cfg, x):
     B, S, D = x.shape
     Di, H = 2 * D, cfg.n_heads
@@ -214,6 +225,13 @@ def init_slstm_block(gen, cfg) -> dict:
     p["w_out"] = dense(gen, D, D)
     p["norm_w"] = torch.ones(D, dtype=torch.bfloat16, device=gen.device)
     return p
+
+
+def slstm_block_specs(cfg, rules) -> dict:
+    """The reference's spec tree of `init_slstm_block` (no tensors)."""
+    D = cfg.d_model
+    return {"w_gates": rules.dense_in(D, 4 * D), "r_gates": P(None, None, None),
+            "w_out": rules.dense_out(D, D), "norm_w": rules.vector()}
 
 
 def slstm_step(p, cfg, gates_x, state):

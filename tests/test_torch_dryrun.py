@@ -435,12 +435,90 @@ def test_dryrun_of_every_reduced_cell_and_its_tools(monkeypatch, tmp_path,
         before["roofline"]["memory_stats"]
 
 
-def test_production_meshes_are_not_ported(tmp_path):
-    for mesh in ("pod", "multipod"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            dryrun.main(["--arch", "qwen3-4b", "--shape", "decode_32k",
-                         "--mesh", mesh, "--out", str(tmp_path)])
-    assert not os.listdir(tmp_path)
+def _ring(base, n, g):
+    """The analyzer's ring formulas: all-reduce 2n(g-1)/g, else n(g-1)/g."""
+    return (2.0 if base == "all-reduce" else 1.0) * n * (g - 1) / g
+
+
+def test_production_meshes_are_not_ported(monkeypatch, tmp_path):
+    """The production meshes are ported: ``--mesh pod`` / ``multipod``
+    count rank 0's share of the sharded decode step under the fake group
+    (left again afterwards).  Reduced qwen3-4b (4 layers, D 128, 4 heads,
+    d_ff 256, vocab 512, no FSDP), batch 64: the 4 heads do not split 16
+    ways, so attention runs whole on every chip after an all-gather of
+    ``wo`` (its rows are on model); the MLP's d_ff and the vocabulary are
+    split, closed by a psum of the (B_local, 1, D) bf16 rows (one a layer
+    and one for the embedding).  The wire bytes are the ring formulas of
+    those collectives, and 256 (512) times a chip's flops lies between the
+    one-card count and 16 times it (the model axis replicates the
+    attention: measured 6.87x on both meshes)."""
+    import torch.distributed as dist
+    shape = ShapeConfig("decode_32k", 32, 64, "decode")
+    monkeypatch.setattr(dryrun, "get_arch", _reduced)
+    monkeypatch.setattr(dryrun, "SHAPES", {"decode_32k": shape})
+    cfg = _reduced("qwen3-4b")
+    one = dryrun.dryrun_cell("qwen3-4b", "decode_32k", "host",
+                             out_dir=str(tmp_path), verbose=False)
+    L, D, dh = cfg.n_layers, cfg.d_model, cfg.head_dim
+    for mesh, chips, label in (("pod", 256, "16x16"),
+                               ("multipod", 512, "2x16x16")):
+        dryrun.main(["--arch", "qwen3-4b", "--shape", "decode_32k",
+                     "--mesh", mesh, "--out", str(tmp_path)])
+        assert not dist.is_initialized()
+        with open(tmp_path / f"qwen3-4b__decode_32k__"
+                  f"{label.replace('x', '_')}.json") as f:
+            rec = json.load(f)
+        assert (rec["status"], rec["chips"], rec["mesh"]) == (
+            "ok", chips, label)
+        roof = rec["roofline"]
+        ratio = roof["flops_per_device"] * chips / \
+            one["roofline"]["flops_per_device"]
+        assert 1.0 <= ratio <= 16.0, ratio
+        b_local = 64 // (chips // 16)
+        psum = _ring("all-reduce", b_local * D * 2, 16)
+        gather = _ring("all-gather", cfg.n_heads * dh * D * 2, 16)
+        assert roof["collectives"] == {
+            "all-reduce": {"count": L + 1, "bytes": (L + 1) * psum},
+            "all-gather": {"count": L, "bytes": L * gather}}
+
+
+@pytest.mark.parametrize("ranks", [4, 1])
+def test_counter_prices_dtensor_redistribute(ranks):
+    """On meta under the fake group (rank 0 of `ranks`): a (64, 8) float32
+    DTensor sharded `ranks` ways and gathered whole by its own
+    `redistribute`, and the same gather through the shard_map shim's
+    `all_gather`, each reach the counter as one all-gather priced by the
+    ring formula (2,048 bytes: 1,920 wire bytes over 4 ranks); over one
+    rank DTensor issues none and the shim's is priced at 0.  An add of
+    two sharded DTensors counts one rank's block."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.dist.compat import all_gather, shard_map
+    from repro_torch.dist.sharding import P
+    from repro_torch.launch.mesh import init_fake_group
+    init_fake_group(ranks)
+    try:
+        mesh = init_device_mesh("cpu", (ranks,), mesh_dim_names=("model",))
+        d = DTensor.from_local(torch.empty(64 // ranks, 8, device="meta"),
+                               mesh, [Shard(0)], run_check=False)
+        gather = {"count": 1, "bytes": _ring("all-gather", 64 * 8 * 4,
+                                             ranks)}
+        with StepCounter(op_log=True) as c:
+            full = d.redistribute(mesh, [Replicate()])
+            d + d
+        assert tuple(full.to_local().shape) == (64, 8)
+        assert c.analyze()["collectives"] == (
+            {"all-gather": gather} if ranks > 1 else {})
+        adds = [r for r in c.op_log() if r["op"] == "aten.add.Tensor"]
+        assert [r["shapes"] for r in adds] == [[[64 // ranks, 8]] * 2]
+        with StepCounter() as c:
+            shard_map(lambda x: all_gather(x, "model", 0), mesh=mesh,
+                      in_specs=(P("model", None),),
+                      out_specs=P(None, None))(d)
+        assert c.analyze()["collectives"] == {"all-gather": gather}
+    finally:
+        dist.destroy_process_group()
 
 
 def test_op_log_stays_small():

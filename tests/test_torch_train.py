@@ -19,7 +19,9 @@ Tolerances, each beside what was measured on the CPU:
   per-leaf relative L2: params and master 1e-6 (measured 1.2e-8), m 2e-6
   (9.6e-7: linear in the scale), v 4e-6 (1.9e-6: quadratic).
 - `softmax_xent` and `lm_loss` on the same float32 logits: 1e-6 relative.
-- `quantize_int8`: bit for bit.
+- `quantize_int8`: bit for bit; `compressed_psum_grads` the int8 round
+  trip bit for bit, also with DTensor leaves on a 2-rank gloo mesh with a
+  pod axis (the payload gathered over pod and averaged).
 - The whole model in bf16 (reduced configs): the loss within a relative
   1e-3 (measured 1e-6 to 6e-5); per-leaf gradients at relative L2 0.08
   (measured 0.021-0.039: dense, VLM, enc-dec, hybrid, SSM) and 0.2 for
@@ -57,6 +59,7 @@ from repro.train.steps import make_train_step as r_make_train_step
 from repro_torch.configs import registry as treg
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.convert import lm_params_from_numpy
+from torch_world import run_world
 from repro_torch.models import attention as ta
 from repro_torch.models import common as tcm
 from repro_torch.models import transformer as tt
@@ -236,10 +239,32 @@ def test_compressed_grads_are_the_int8_round_trip():
         torch.testing.assert_close(got, tcomp.dequantize_int8(q, s),
                                    rtol=0, atol=0)
 
-    class PodRules:
-        multi_pod = True
-    with pytest.raises(NotImplementedError, match="LM mesh"):
-        tcomp.compressed_psum_grads(g, PodRules())
+    # with a pod axis: DTensor leaves on a (2, 1, 1) ("pod", "data",
+    # "model") gloo mesh, the int8 payload gathered over pod and averaged
+    outs = run_world(_pod_round_trip, 2, g)
+    for k, v in (("a", g["a"]), ("b", g["n"]["b"])):
+        q, s = tcomp.quantize_int8(v.float())
+        want = tcomp.dequantize_int8(q, s).numpy()
+        for o in outs:
+            assert o[k].dtype == np.float32
+            np.testing.assert_array_equal(o[k], want)
+
+
+def _pod_round_trip(rank, g):
+    """`compressed_psum_grads` of `g` placed on a (2, 1, 1) pod mesh, each
+    leaf sharded on its first dim over data (size 1) and replicated over
+    pod; every rank's whole result."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.dist.compat import to_dtensor
+    from repro_torch.dist.sharding import P, ShardingRules
+    mesh = init_device_mesh("cpu", (2, 1, 1),
+                            mesh_dim_names=("pod", "data", "model"))
+    rules = ShardingRules(model_size=1, data_size=1, multi_pod=True,
+                          pod_size=2)
+    dg = {"a": to_dtensor(g["a"], mesh, P("data", None)),
+          "n": {"b": to_dtensor(g["n"]["b"], mesh, P("data"))}}
+    out = tcomp.compressed_psum_grads(dg, rules, mesh)
+    return {"a": out["a"].full_tensor(), "b": out["n"]["b"].full_tensor()}
 
 
 # ---------------------------------------------------------------------------
