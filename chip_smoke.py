@@ -26,12 +26,20 @@ no result.  Phases, each printing one JSON line:
 3. kernels: each kernel against its plain-torch twin on the card, bit for
    bit, with times and bounds, at the shapes its path gives it and at a
    larger one (the encode also at the 256-point call the path made before
-   its split ran once a batch);
+   its split ran once a batch); `window_filter` at the path's shape also
+   cold (the L2 cache flushed by a write of twice its size before each
+   launch), with its ring's dynamic shared memory a block;
 4. main path: a 10M-row OSM-like index (d=2, K=32, heuristic paging) under
    the learned global curve, served on the card, Count and Range batches
-   through the CUDA kernels (k_maxsplit + 1 encode launches a batch), held
-   bit for bit against the plain-torch backend on the card and against
-   brute force;
+   through the CUDA kernels (k_maxsplit + 1 encode launches a batch, one
+   `window_filter` launch a Count chunk, which reads its candidate pages
+   by id: the page gather runs only for Range), held bit for bit against
+   the plain-torch backend on the card and against brute force; the live
+   candidate pages a Count query and the profiled Count batch's busy ms,
+   launches and top kernels.  Then (`kernels_paged` line) the paged
+   filter on this index's own arrays: with the first Count batch's
+   candidates, chunk by chunk, and at a dense shape (16 queries with 256
+   live, distinct pages each), each against its twin, warm and cold;
 5. piecewise path: a 1M-row NYC-like index (d=3) under the learned
    piecewise curve, held the same way;
 6. database: the user's entry point, `repro_torch.api.Database`, on the
@@ -339,6 +347,39 @@ def kernel_times(fn, iters: int = 20, one_launch: bool = False) -> dict:
             "device_events_per_call": per_call}
 
 
+def flush_buffer(dev):
+    """int32 buffer of twice the card's L2 cache (writing it evicts L2)."""
+    import torch
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    return torch.empty(2 * l2 // 4, dtype=torch.int32, device=dev)
+
+
+def profiled_ms(fn, flush=None, iters: int = 30) -> tuple:
+    """The profiler's device time of one call (every device event but the
+    flush's fill) and of its filter kernels alone, means over `iters`
+    calls; the flush, if any, is written before each call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            if flush is not None:
+                flush.fill_(i)
+            fn()
+        torch.cuda.synchronize()
+    total = kernel = 0
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != DeviceType.CUDA
+                or "FillFunctor<int>" in e.name()):
+            continue
+        total += e.duration_ns()
+        if "filter_kernel" in e.name():
+            kernel += e.duration_ns()
+    return total / iters / 1e6, kernel / iters / 1e6
+
+
 def profile_batch(fn) -> dict:
     """One served batch under the profiler: host wall time, device busy
     time, the idle share, and the kernels that took the most time."""
@@ -466,7 +507,10 @@ def phase_setup() -> dict:
               "kernel": "sfc_encode_kernel",
               "d": int(m.group(1)) or "any", "C": int(m.group(2)) or "any",
               "table": "smem" if m.group(3) == "1" else "l1"}),
-          "encode_sass_instructions": encode_sass})
+          "encode_sass_instructions": encode_sass,
+          "filter_ptxas": ptxas_entries(ptxas, FILTER_ENTRY, lambda m: {
+              "kernel": "window_filter_kernel",
+              "d": int(m.group(1)) or "any"})})
     return {"card": card, "int_ops_per_s": int_ops_per_s}
 
 
@@ -474,6 +518,8 @@ FLASH_ENTRY = re.compile(r"Compiling entry function '\S*?"
                          r"(flash_tc_kernel|flash_fwd_kernel)ILi(\d+)E")
 ENCODE_ENTRY = re.compile(r"Compiling entry function '\S*?"
                           r"sfc_encode_kernelILi(\d+)ELi(\d+)ELb([01])E")
+FILTER_ENTRY = re.compile(r"Compiling entry function '\S*?"
+                          r"window_filter_kernelILi(\d+)E")
 
 
 def ptxas_entries(log: str, entry: re.Pattern, label) -> list:
@@ -768,6 +814,122 @@ def _hold_kernel(name: str, fn, ref, args, nbytes: float, ops: float,
             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
 
 
+def paged_chunks(arrays, curve, batch) -> list:
+    """The Count path's `window_filter_paged` inputs for each q_chunk of
+    `batch`: (points, page_size, queries, cand, n_cand)."""
+    from repro_torch.core import serve as tsv
+    out = []
+    for queries, *split in tsv._chunks(arrays, batch, curve, K_MAXSPLIT,
+                                       Q_CHUNK, "cuda"):
+        _, cand, n_cand = tsv._count_candidates(arrays, queries, *split,
+                                                max_cand=MAX_CAND)
+        out.append((arrays.points, arrays.page_size, queries.contiguous(),
+                    cand, n_cand))
+    return out
+
+
+def live_candidates(chunks) -> dict:
+    """Live candidate pages a query (n_cand capped at max_cand) over the
+    chunks, and how many queries overflowed max_cand."""
+    import torch
+    raw = torch.cat([c[4] for c in chunks]).cpu()
+    n = raw.clamp(0, MAX_CAND).float()
+    return {"queries": len(n), "mean": float(n.mean()),
+            "median": float(n.median()), "max": int(n.max()),
+            "overflowed": int((raw > MAX_CAND).sum())}
+
+
+def filter_bytes_paged(page_size, cand, n_cand, d: int, cap: int) -> int:
+    """Bytes a paged filter call must move for its data (a bound's count,
+    read on the host): each distinct live page's valid slots and its size
+    once, the (Qc, d, 2) rectangles, the live ids, the (Qc,) int64 live
+    counts in, and the (Qc,) int32 counts out."""
+    import torch
+    Qc, C = cand.shape
+    live = (torch.arange(C)[None, :]
+            < torch.clamp(n_cand.cpu(), max=C)[:, None])
+    pages = torch.unique(cand.cpu()[live].to(torch.int64))
+    valid = int(page_size.cpu()[pages].clamp(0, cap).sum())
+    return (valid * d * 4 + len(pages) * 4 + Qc * d * 2 * 4
+            + int(live.sum()) * 4 + Qc * 8 + Qc * 4)
+
+
+def _hold_paged(name: str, chunks, flush, plain_iters: int = 2) -> dict:
+    """`window_filter_paged` on each chunk against its twin, bit for bit,
+    and its times per call, means over the chunks: `ms` the profiler's
+    device time of a call (its zeroing of the output and its kernel), warm
+    and `cold` (L2 flushed before each call), `kernel_ms` the kernel alone,
+    `plain_ms` the twin's; the bound, the bytes the chunks' data needs
+    (`filter_bytes_paged`: the distinct live pages' valid slots once) at
+    3.35 TB/s."""
+    import torch
+    from repro_torch.kernels.window_filter.ops import window_filter_paged
+    from repro_torch.kernels.window_filter.ref import window_filter_paged_ref
+    err, nbytes = 0, 0
+    for args in chunks:
+        got = window_filter_paged(*args)
+        want = window_filter_paged_ref(*args)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(got, want))
+        _, d, cap = args[0].shape
+        nbytes += filter_bytes_paged(args[1], args[3], args[4], d, cap)
+    check(err == 0, f"{name}: window_filter_paged disagrees with its plain "
+                    f"twin (max {err})")
+    n = len(chunks)
+
+    def each(cold: bool):
+        def run():
+            for i, args in enumerate(chunks):
+                if cold:
+                    flush.fill_(i)
+                window_filter_paged(*args)
+        return run
+
+    warm, warm_k = profiled_ms(each(False), iters=10)
+    cold, cold_k = profiled_ms(each(True), iters=10)
+    plain = kernel_times(lambda: [window_filter_paged_ref(*a)
+                                  for a in chunks], iters=plain_iters)
+    b_ms = nbytes / n / HBM_BYTES_PER_S * 1e3
+    return {"calls": n, "max_abs_err": err, "ms": warm / n,
+            "kernel_ms": warm_k / n, "cold_ms": cold / n,
+            "cold_kernel_ms": cold_k / n, "plain_ms": plain["ms"] / n,
+            "bound_ms": b_ms, "bound_by": "bytes", "bytes": nbytes / n,
+            "share": b_ms / (warm / n), "cold_share": b_ms / (cold / n),
+            "library_ms": None}
+
+
+def phase_paged_filter(served: dict, seed: int) -> dict:
+    """The paged filter on the main index's own `ServingArrays`: (b) with
+    the candidates of the main phase's first Count batch, chunk by chunk;
+    (c) at a dense shape, its first chunk's 16 queries with 256 live,
+    distinct non-empty pages each.  Each against its twin; times warm and
+    cold (`_hold_paged`)."""
+    import numpy as np
+    import torch
+    arrays, curve = served["arrays"], served["curve"]
+    flush = flush_buffer(arrays.points.device)
+    chunks = paged_chunks(arrays, curve, served["batch"])
+    live = live_candidates(chunks)
+    paged = {**_hold_paged("kernels_paged: paged", chunks, flush),
+             "live_candidates": live}
+    rng = np.random.default_rng(seed + 24)
+    full = (arrays.page_size > 0).nonzero().flatten().cpu().numpy()
+    cand = np.stack([rng.choice(full, size=MAX_CAND, replace=False)
+                     for _ in range(Q_CHUNK)]).astype(np.int32)
+    points, page_size, queries = chunks[0][:3]
+    dense_args = (points, page_size, queries,
+                  torch.from_numpy(cand).to(points.device),
+                  torch.full((Q_CHUNK,), MAX_CAND, dtype=torch.int64,
+                             device=points.device))
+    dense = {**_hold_paged("kernels_paged: dense", [dense_args], flush),
+             "shape": [Q_CHUNK, MAX_CAND, *points.shape[1:]],
+             "pages": int(points.shape[0])}
+    del flush
+    out = {"paged": paged, "paged_dense": dense}
+    emit({"phase": "kernels_paged", "card": CARD, **out})
+    return out
+
+
 def encode_work(n: int, d: int, K: int, R: int, M: int, P: int = 1,
                 shared: bool = True) -> int:
     """The bytes an encode of n points under P curves must move: the points
@@ -801,6 +963,7 @@ def phase_kernels(main_curve, pw_curve, int_ops_per_s: float) -> dict:
     import torch
     from repro_torch.core.curve import curve_tables
     from repro_torch.kernels.sfc_encode.ops import plan_encode, sfc_encode
+    from repro_torch.kernels import cuda_lib
     from repro_torch.kernels.sfc_encode.ref import sfc_encode_ref
     from repro_torch.kernels.window_filter.ops import (window_filter,
                                                        window_match)
@@ -812,6 +975,7 @@ def phase_kernels(main_curve, pw_curve, int_ops_per_s: float) -> dict:
     out = {"window_filter": {}, "window_match": {}}
 
     d, cap = 2, MAIN_CAP
+    flush = flush_buffer(dev)
     for shape, G in (("path", Q_CHUNK * MAX_CAND), ("large", Q_CHUNK * 64)):
         pts, rect, size = _filter_inputs(rng, G, d, cap, dev)
         valid = int(size.clamp(0, cap).sum().item())
@@ -824,6 +988,17 @@ def phase_kernels(main_curve, pw_curve, int_ops_per_s: float) -> dict:
                 **_hold_kernel(name, fn, ref, (pts, rect, size),
                                in_bytes + out_bytes, 2.0 * valid * d,
                                int_ops_per_s)}
+        if shape == "path":
+            # cold: L2 (50 MB) flushed by a 2 x L2 write before each
+            # launch; the kernel's own time
+            _, cold = profiled_ms(lambda: window_filter(pts, rect, size),
+                                  flush, iters=20)
+            row = out["window_filter"]["path"]
+            row["cold"] = {"ms": cold, "bound_ms": row["bound_ms"],
+                           "share": row["bound_ms"] / cold}
+    del flush
+    out["window_filter"]["smem_bytes"] = (
+        cuda_lib.library().window_filter_smem_bytes(d, cap))
 
     out["sfc_encode"] = {}
     for kind, curve in (("global", main_curve), ("piecewise", pw_curve)):
@@ -922,23 +1097,36 @@ def _fns(curve, backend: str) -> tuple:
 
 def _serve(arrays, curve, batches, backend: str) -> tuple:
     """Run every batch through Count, then through Range; results on the
-    host, the wall-clock seconds of each (ending in a synchronize), and
-    the launch counts after the Count batches."""
+    host, the wall-clock seconds of each (ending in a synchronize), the
+    launch counts after the Count batches, and the calls of the candidate
+    page gather (`core.serve._gather`) by Count and by Range."""
     import torch
+    from repro_torch.core import serve as tsv
     from repro_torch.kernels import cuda_lib
     qfn, rfn = _fns(curve, backend)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    counts = [qfn(arrays, q) for q in batches]
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    after_count = dict(cuda_lib.LAUNCHES)
-    ranges = [rfn(arrays, q) for q in batches]
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
+    gather, gathered = tsv._gather, []
+
+    def counted(*a):
+        gathered.append(1)
+        return gather(*a)
+
+    tsv._gather = counted
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        counts = [qfn(arrays, q) for q in batches]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        after_count = dict(cuda_lib.LAUNCHES)
+        count_gathers = len(gathered)
+        ranges = [rfn(arrays, q) for q in batches]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    finally:
+        tsv._gather = gather
     to_host = lambda outs: [tuple(t.cpu() for t in o) for o in outs]
     return (to_host(counts), to_host(ranges), t1 - t0, t2 - t1,
-            after_count)
+            after_count, (count_gathers, len(gathered) - count_gathers))
 
 
 def _hold_path(name: str, data, index, curve, n_batches: int, seed: int,
@@ -972,14 +1160,14 @@ def _hold_path(name: str, data, index, curve, n_batches: int, seed: int,
     _serve(arrays, curve, batches[:1], "torch")
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launches()
-    counts, ranges, count_s, range_s, after_count = _serve(
+    counts, ranges, count_s, range_s, after_count, gathers = _serve(
         arrays, curve, batches, "cuda")
     launches = dict(cuda_lib.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     for k in kernel_names:
         check(launches[k] > 0, f"{name}: kernel {k} was not launched")
-    p_counts, p_ranges, p_count_s, p_range_s, _ = _serve(arrays, curve,
-                                                         batches, "torch")
+    p_counts, p_ranges, p_count_s, p_range_s, _, _ = _serve(
+        arrays, curve, batches, "torch")
     for a, b in zip(counts + ranges, p_counts + p_ranges):
         for x, y in zip(a, b):
             check(torch.equal(x, y),
@@ -1032,6 +1220,14 @@ def _hold_path(name: str, data, index, curve, n_batches: int, seed: int,
               f"{name}: {per_batch[kind]['sfc_encode']} sfc_encode launches "
               f"a {kind} batch, not {K_MAXSPLIT + 1} (one a split level, one "
               f"for the z-ranges)")
+    check(per_batch["count"]["window_filter"] == BATCH // Q_CHUNK,
+          f"{name}: {per_batch['count']['window_filter']} window_filter "
+          f"launches a Count batch, not one a chunk ({BATCH // Q_CHUNK})")
+    check(gathers[0] == 0 and gathers[1] == n_batches * BATCH // Q_CHUNK,
+          f"{name}: the candidate page gather ran {gathers[0]} times in "
+          f"Count (none: its kernel reads pages by id) and {gathers[1]} in "
+          f"Range (one a chunk)")
+    live = live_candidates(paged_chunks(arrays, curve, batches[0]))
     res = {
         "phase": name, "rows": int(index.n), "d": int(index.d),
         "K": int(index.K), "curve": curve.kind, "pages": int(index.num_pages),
@@ -1045,7 +1241,8 @@ def _hold_path(name: str, data, index, curve, n_batches: int, seed: int,
         "brute_checked_count": n_checked, "brute_checked_range": r_checked,
         "mean_hits": float(np.mean(n_hits)), "launches": launches,
         "launches_per_batch": per_batch, "peak_device_bytes": int(peak),
-        "profile": profile}
+        "gathers": {"count": gathers[0], "range": gathers[1]},
+        "count_live_candidates": live, "profile": profile}
     emit(res)
     # what the cost_model phase counts again: not printed
     res["_served"] = {"arrays": arrays, "batch": batches[0],
@@ -3409,8 +3606,10 @@ def _kernel_bytes_vs_bounds(counters, curve) -> dict:
     """Every kernel op a counter logged against the bound's work at its
     shapes: flash `flash_bound`'s flops and bytes, the encode
     `encode_work`, the window kernels the bound's bytes with every slot
-    valid (the bound itself counts the valid slots of its data)."""
+    valid (the bound itself counts the valid slots of its data), the paged
+    filter's over min(Qc * C, P) distinct pages (`filter_work_paged`)."""
     from repro_torch.core.curve import curve_tables
+    from repro_torch.kernels.window_filter.ops import filter_work_paged
     out = {}
     for counter in counters:
         for r in counter.op_log():
@@ -3427,6 +3626,9 @@ def _kernel_bytes_vs_bounds(counters, curve) -> dict:
                 pos, reg = curve_tables(curve, "cpu")
                 M = int((reg < curve.d * curve.K).sum())
                 want = (0, n * encode_work(x_n, d, curve.K, pos.shape[0], M))
+            elif key == "window_filter" and len(shapes) == 5:
+                (P, d, cap), _, _, (Qc, C), _ = shapes
+                want = (0, n * filter_work_paged(P, Qc, C, d, cap))
             else:
                 (G, d, cap) = shapes[0]
                 out_bytes = G * 4 if key == "window_filter" else G * cap
@@ -3992,6 +4194,8 @@ def main(argv=None) -> int:
     kern = phase_kernels(main_curve, pw_curve, int_ops_per_s)
     kern["sfc_encode_pool"] = phase_pool_kernel(smbo, int_ops_per_s)
     main_res = phase_main(osm, args.batches, main_curve)
+    kern["window_filter"].update(phase_paged_filter(main_res["_served"],
+                                                    args.seed))
     pw_res = phase_piecewise(nyc, args.batches, pw_curve)
     pw_res.pop("_served")
     db_res = phase_database(osm, args.batches, args.seed, main_res)
@@ -4042,6 +4246,11 @@ def main(argv=None) -> int:
             "bound_by": k["bound_by"], "library_ms": library_ms}
         if name.startswith("sfc_encode"):
             row.update(shape=k["shape"], placement=k["placement"])
+        if name == "window_filter":
+            wf = kern[name]
+            row.update(cold=wf["path"]["cold"], paged=wf["paged"],
+                       paged_dense=wf["paged_dense"],
+                       smem_bytes=wf["smem_bytes"])
         if pw_path is not None:
             row["piecewise_launches"] = pw_path["launches"][name]
         row["database_launches"] = db_res["launches"][name]

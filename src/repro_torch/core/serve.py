@@ -10,9 +10,9 @@ The paper's per-query page walk is re-expressed as a static-shape pipeline
   contain    — pages whose MBR ⊆ query contribute size() with *no* gather
                (the paper's containment shortcut; Count only)
   compact    — top-C candidate page ids per query (static bound)
-  gather     — only candidate pages' points
-  filter     — points-in-rectangle count or mask (CUDA window_filter /
-               window_match kernels)
+  filter     — points-in-rectangle count or mask: Count's window_filter
+               kernel reads the candidate pages by id, one launch a chunk;
+               Range gathers the candidate pages' points for window_match
 
 Every function here takes ``backend``: ``"cuda"`` (default) runs the
 hand-written kernels for split/z-range encodes and the filter; ``"torch"``
@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from ..dist.sharding import P
-from ..kernels.window_filter.ops import window_filter, window_match
+from ..kernels.window_filter.ops import window_filter_paged, window_match
 from .curve import as_curve
 from .device import resolve_device
 from .index import LMSFCIndex
@@ -217,7 +217,8 @@ def _compact(mask: torch.Tensor, values: torch.Tensor, width: int,
 
 def _gather(arrays: ServingArrays, queries, cand, n_cand, max_cand):
     """Candidate pages' points, sizes (0 past the candidate count) and the
-    broadcast query rects, flattened to the filter kernels' (G, ...)."""
+    broadcast query rects, flattened to the filter kernels' (G, ...): the
+    Range path's input to `window_match` (Count reads its pages by id)."""
     Qc = queries.shape[0]
     cand_valid = (torch.arange(max_cand, device=cand.device)[None, :]
                   < torch.clamp(n_cand, max=max_cand)[:, None])
@@ -249,6 +250,25 @@ def _chunks(arrays: ServingArrays, queries, curve, k_maxsplit: int,
     return list(zip(*(t.split(q_chunk) for t in (queries, valid, zlo, zhi))))
 
 
+def _count_candidates(arrays: ServingArrays, queries, valid, zlo, zhi, *,
+                      max_cand: int):
+    """A Count chunk's prune, containment shortcut and compaction: the
+    (Qc,) sizes of the live pages inside each query (`base`), the (Qc,
+    max_cand) int32 ids of its first partial pages and the (Qc,) int64
+    number of them (which may exceed max_cand: overflow)."""
+    live, (qlo, qhi, mlo, mhi) = _live_pages(arrays, queries, valid, zlo,
+                                             zhi)
+    contained = torch.all(u32_le(qlo, mlo) & u32_le(mhi, qhi), dim=-1)
+    full = live & contained
+    partial = live & ~contained
+    # ---- containment shortcut -------------------------------------------
+    base = torch.sum(torch.where(full, arrays.page_size[None, :], 0), dim=1)
+    # ---- compact: top-C partial candidates -------------------------------
+    pidx = torch.arange(partial.shape[1], device=partial.device)[None]
+    cand, n_cand = _compact(partial, pidx, max_cand, 0)
+    return base, cand, n_cand
+
+
 def make_query_fn(curve, *, k_maxsplit: int = 4, max_cand: int = 64,
                   q_chunk: int = 16, backend: str = "cuda"):
     """Returns query_batch(arrays, queries (Q, d, 2) int32) -> (counts (Q,)
@@ -258,21 +278,14 @@ def make_query_fn(curve, *, k_maxsplit: int = 4, max_cand: int = 64,
     curve = as_curve(curve)
 
     def _chunk(arrays: ServingArrays, queries, *split):
-        live, (qlo, qhi, mlo, mhi) = _live_pages(arrays, queries, *split)
-        contained = torch.all(u32_le(qlo, mlo) & u32_le(mhi, qhi), dim=-1)
-        full = live & contained
-        partial = live & ~contained
-        # ---- containment shortcut ---------------------------------------
-        base = torch.sum(torch.where(full, arrays.page_size[None, :], 0),
-                         dim=1)
-        # ---- compact: top-C partial candidates ---------------------------
-        pidx = torch.arange(partial.shape[1], device=partial.device)[None]
-        cand, n_cand = _compact(partial, pidx, max_cand, 0)
+        base, cand, n_cand = _count_candidates(arrays, queries, *split,
+                                               max_cand=max_cand)
         overflow = n_cand > max_cand
-        # ---- gather + filter ---------------------------------------------
-        pts, rect, size = _gather(arrays, queries, cand, n_cand, max_cand)
-        cnt = window_filter(pts, rect, size, backend=backend)
-        counts = base + cnt.reshape(-1, max_cand).sum(dim=1)
+        # ---- filter the candidate pages, read by id ----------------------
+        cnt = window_filter_paged(arrays.points, arrays.page_size,
+                                  queries.contiguous(), cand, n_cand,
+                                  backend=backend)
+        counts = base + cnt
         return counts.to(torch.int32), overflow.to(torch.int32)
 
     def query_batch(arrays: ServingArrays, queries):

@@ -42,8 +42,12 @@ LAUNCHES = {"window_filter": 0, "window_match": 0, "sfc_encode": 0,
 _VP, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _I64P = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
+    # points, page_size, queries, cand, n_cand, out, P, Qc, C, d, cap, stream
+    "window_filter_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT,
+                             _INT, _INT, _VP),
+    # d, cap -> dynamic shared memory bytes of a window_filter block
+    "window_filter_smem_bytes": (_INT, _INT),
     # pts, rect, size, out, G, d, cap, stream
-    "window_filter_launch": (_VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP),
     "window_match_launch": (_VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP),
     # x, lut, reg, out, n, d, K, R, M, staged, blocks, stream
     "sfc_encode_launch": (_VP, _VP, _VP, _VP, _I64, _INT, _INT, _INT, _INT,

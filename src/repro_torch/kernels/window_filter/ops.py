@@ -5,14 +5,19 @@ plain-torch twin only for CPU tensors; ``backend="torch"`` always uses the
 twin.  There is no fallback from a CUDA tensor to the twin.  On ``meta``
 tensors the kernel route allocates the kernel's outputs and launches
 nothing (a shape-only run); on either device each call is one op to an
-active step counter (`filter_work`).
+active step counter (`filter_work`, `filter_work_paged`).
+
+`window_filter_paged` counts, for each query, the hits in its candidate
+pages read by id from the index's page array; `window_filter` (the TPU
+kernel's contract, pages gathered by the caller) launches the same kernel
+with each page its own query.  Both count under ``"window_filter"``.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import cuda_lib
-from .ref import window_filter_ref, window_match_ref
+from .ref import window_filter_paged_ref, window_filter_ref, window_match_ref
 
 BACKENDS = ("cuda", "torch")
 
@@ -44,6 +49,20 @@ def filter_work(G: int, d: int, cap: int, out_bytes: int) -> int:
     return G * d * cap * 4 + G * d * 2 * 4 + G * 4 + out_bytes
 
 
+def filter_work_paged(P: int, Qc: int, C: int, d: int, cap: int,
+                      n_cand_bytes: int = 8) -> int:
+    """Bytes a paged filter call moves, from shapes alone: Qc * C candidate
+    ids name at most min(Qc * C, P) distinct pages, each read once (a page
+    two queries share is one input byte read once, as a bound counts it)
+    with every slot valid, with its size; the (Qc, d, 2) rectangles, the
+    (Qc, C) int32 ids and the (Qc,) live counts (`n_cand_bytes` each) in
+    once; the (Qc,) int32 counts out.  Which ids are live, and how full
+    their pages are, is data: `chip_smoke.py`'s bound counts those."""
+    pages = min(Qc * C, P)
+    return (pages * (d * cap * 4 + 4) + Qc * d * 2 * 4 + Qc * C * 4
+            + Qc * n_cand_bytes + Qc * 4)
+
+
 def _count(key: str, pts, rect, size, out) -> None:
     G, d, cap = pts.shape
     cuda_lib.count_kernel(key, lambda: (
@@ -52,7 +71,9 @@ def _count(key: str, pts, rect, size, out) -> None:
 
 
 def window_filter(pts, rect, size, *, backend: str = "cuda"):
-    """pts: (G, d, cap) int32; rect: (G, d, 2); size: (G,) -> (G,) int32."""
+    """pts: (G, d, cap) int32; rect: (G, d, 2); size: (G,) -> (G,) int32.
+    On the card: the paged kernel with each page its own query (no ids,
+    every page live)."""
     if _use_ref(pts, backend):
         return window_filter_ref(pts, rect, size)
     G, d, cap = _check(pts, rect, size)
@@ -60,10 +81,69 @@ def window_filter(pts, rect, size, *, backend: str = "cuda"):
     if G:
         if cuda_lib.on_card(pts):
             cuda_lib.launch("window_filter_launch", pts.data_ptr(),
-                            rect.data_ptr(), size.data_ptr(), out.data_ptr(),
-                            G, d, cap)
+                            size.data_ptr(), rect.data_ptr(), None, None,
+                            out.data_ptr(), G, G, 1, d, cap)
             cuda_lib.LAUNCHES["window_filter"] += 1
         _count("window_filter", pts, rect, size, out)
+    return out
+
+
+def _check_paged(points, page_size, queries, cand, n_cand) -> tuple:
+    for name, t, ndim in (("points", points, 3), ("page_size", page_size, 1),
+                          ("queries", queries, 3), ("cand", cand, 2)):
+        cuda_lib.check_cuda_int32(name, t, ndim)
+    cuda_lib.check_cuda("n_cand", n_cand, torch.int64, 1)
+    P, d, cap = points.shape
+    Qc, C = cand.shape
+    if (tuple(page_size.shape) != (P,) or tuple(queries.shape) != (Qc, d, 2)
+            or tuple(n_cand.shape) != (Qc,)):
+        raise ValueError(
+            f"shapes disagree: points {tuple(points.shape)}, page_size "
+            f"{tuple(page_size.shape)}, queries {tuple(queries.shape)}, cand "
+            f"{tuple(cand.shape)}, n_cand {tuple(n_cand.shape)}")
+    if any(t.device != points.device
+           for t in (page_size, queries, cand, n_cand)):
+        raise ValueError("points, page_size, queries, cand and n_cand must "
+                         "be on one device")
+    if Qc * C >= 2**31:
+        raise ValueError(f"Qc * C = {Qc * C} items; the kernel takes fewer "
+                         f"than 2^31")
+    return P, d, cap, Qc, C
+
+
+def window_filter_paged(points, page_size, queries, cand, n_cand, *,
+                        backend: str = "cuda"):
+    """Hits of each query in its candidate pages, read by id.
+
+    points (P, d, cap) int32 (unsigned coordinates), page_size (P,) int32,
+    queries (Qc, d, 2) int32 [lo, hi], cand (Qc, C) int32 page ids in
+    [0, P), n_cand (Qc,) integer -> (Qc,) int32: for each query q the
+    number of (c, s) with c < min(n_cand[q], C), s < clamp(page_size[p],
+    0, cap) for p = cand[q, c], and lo <= points[p, :, s] <= hi in every
+    dimension, compared unsigned.  Equal bit for bit to gathering the
+    pages (`ref.gather_pages`), `window_filter` and a sum per query.  One
+    kernel launch; a (query, candidate) past n_cand reads nothing.  On the
+    card a live id outside [0, P) stops the kernel, as torch's index
+    assert does: the error is raised at the next synchronizing call and
+    leaves the CUDA context unusable."""
+    if _use_ref(points, backend):
+        return window_filter_paged_ref(points, page_size, queries, cand,
+                                       n_cand)
+    n_cand = n_cand.to(torch.int64)
+    P, d, cap, Qc, C = _check_paged(points, page_size, queries, cand, n_cand)
+    if not (Qc and C):
+        return torch.zeros(Qc, dtype=torch.int32, device=points.device)
+    out = torch.empty(Qc, dtype=torch.int32, device=points.device)
+    if cuda_lib.on_card(points):
+        cuda_lib.launch("window_filter_launch", points.data_ptr(),
+                        page_size.data_ptr(), queries.data_ptr(),
+                        cand.data_ptr(), n_cand.data_ptr(), out.data_ptr(),
+                        P, Qc, C, d, cap)
+        cuda_lib.LAUNCHES["window_filter"] += 1
+    cuda_lib.count_kernel("window_filter", lambda: (
+        0, filter_work_paged(P, Qc, C, d, cap, n_cand.element_size()),
+        (tuple(points.shape), tuple(page_size.shape), tuple(queries.shape),
+         tuple(cand.shape), tuple(n_cand.shape)), out))
     return out
 
 

@@ -40,8 +40,11 @@ from repro_torch.kernels.sfc_encode.ops import sfc_encode, sfc_encode_pool
 from repro_torch.kernels.sfc_encode.ref import (lut_tables,
                                                 sfc_encode_pool_ref,
                                                 sfc_encode_ref)
-from repro_torch.kernels.window_filter.ops import window_filter, window_match
-from repro_torch.kernels.window_filter.ref import (window_filter_ref,
+from repro_torch.kernels.window_filter.ops import (window_filter,
+                                                   window_filter_paged,
+                                                   window_match)
+from repro_torch.kernels.window_filter.ref import (window_filter_paged_ref,
+                                                   window_filter_ref,
                                                    window_match_ref)
 from repro_torch.models.transformer import init_decode_state, init_model
 from repro_torch.train.steps import make_decode_step, make_prefill_step
@@ -80,6 +83,101 @@ def test_window_kernels_match_twins(cuda_device, G, d, cap):
     assert cuda_lib.LAUNCHES["window_match"] == before["window_match"] + 1
     assert torch.equal(got_c.cpu(), window_filter_ref(*cpu))
     assert torch.equal(got_m.cpu(), window_match_ref(*cpu))
+
+
+@pytest.mark.parametrize("Qc,C,d,cap,P,shift", [
+    (16, 256, 2, 1024, 2048, 0),    # the Count path's chunk
+    (37, 64, 3, 682, 300, 1),       # rows 4 bytes off 16: aligned-down copies
+    (5, 6, 4, 1, 9, 0),             # cap 1
+    (8, 16, 32, 1024, 64, 0),       # d 32: the general body, 69 KB a block
+    (9, 7, 5, 100, 20, 1),          # d 5: the general body
+])
+def test_paged_window_filter_matches_twin(cuda_device, Qc, C, d, cap, P,
+                                          shift):
+    """The paged kernel against its twin: sizes -1..cap + 2, n_cand 0,
+    below, at and above C, repeated ids, sign bits; `shift` starts the
+    points one word into their buffer, so no row is 16-byte aligned."""
+    rng = np.random.default_rng(Qc * C + d)
+    flat = _i32(rng.integers(0, 2**32, size=P * d * cap + shift,
+                             dtype=np.uint64))
+    points = torch.from_numpy(flat)[shift:].view(P, d, cap)
+    size = torch.from_numpy(rng.integers(-1, cap + 3, size=P)
+                            .astype(np.int32))
+    span = int(0.5 ** (1 / d) * 2**32)
+    lo = rng.integers(0, 2**32 - span, size=(Qc, d), dtype=np.uint64)
+    queries = torch.from_numpy(_i32(np.stack([lo, lo + span], axis=-1)))
+    cand = rng.integers(0, P, size=(Qc, C))
+    cand[0, 1:] = cand[0, 0]
+    cand = torch.from_numpy(cand.astype(np.int32))
+    n_cand = torch.from_numpy(rng.integers(0, C + 4, size=Qc))
+    n_cand[:3] = torch.tensor([0, C, C + 5])
+    cpu = (points, size, queries, cand, n_cand)
+    dev = tuple(t.to(cuda_device) for t in cpu)
+    if shift:
+        flat_dev = torch.from_numpy(flat).to(cuda_device)
+        dev = (flat_dev[shift:].view(P, d, cap),) + dev[1:]
+        assert dev[0].data_ptr() % 16 == 4
+    want = window_filter_paged_ref(*cpu)
+    before = cuda_lib.LAUNCHES["window_filter"]
+    got = window_filter_paged(*dev)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["window_filter"] == before + 1
+    assert torch.equal(got.cpu(), want)
+    assert want[0] == 0 and (want.sum() > 0 or cap == 1)
+    got = window_filter_paged(*dev[:4], dev[4].to(torch.int32))
+    assert torch.equal(got.cpu(), want)
+    assert cuda_lib.LAUNCHES["window_filter"] == before + 2
+
+
+def test_paged_window_filter_stops_on_a_live_id_outside_the_pages(
+        cuda_device):
+    """An id past n_cand is never read, whatever it holds; a live id
+    outside [0, P) (P itself, or -1) stops the kernel, and the error
+    reaches the caller at the next sync, as torch's index assert does.  The
+    fault leaves the CUDA context unusable, so it runs in a child
+    process."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = r'''
+import sys
+import torch
+from repro_torch.kernels.window_filter.ops import window_filter_paged
+from repro_torch.kernels.window_filter.ref import window_filter_paged_ref
+g = torch.Generator().manual_seed(5)
+P, d, cap, Qc, C = 40, 2, 1024, 4, 8
+points = torch.randint(-2**31, 2**31, (P, d, cap), generator=g,
+                       dtype=torch.int64).to(torch.int32)
+size = torch.randint(0, cap + 1, (P,), generator=g, dtype=torch.int32)
+queries = torch.tensor([[[0, -1]] * d] * Qc, dtype=torch.int32)
+cand = torch.randint(0, P, (Qc, C), generator=g, dtype=torch.int32)
+n_cand = torch.tensor([C, 3, 0, C + 2])
+want = window_filter_paged_ref(points, size, queries, cand, n_cand)
+dead = cand.clone()
+dead[1, 3:] = P
+dead[2, :] = -1
+dev = lambda *ts: [t.cuda() for t in ts]
+got = window_filter_paged(*dev(points, size, queries, dead, n_cand))
+assert torch.equal(got.cpu(), want), (got, want)
+assert int(want[0]) == int(size[cand[0].long()].sum())
+bad = cand.clone()
+bad[int(sys.argv[1]), 1] = int(sys.argv[2])
+try:
+    window_filter_paged(*dev(points, size, queries, bad, n_cand))
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("RAISED", str(e).splitlines()[0])
+'''
+    root = Path(__file__).resolve().parents[1]
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    for q, page in ((0, 40), (3, -1)):
+        proc = subprocess.run([sys.executable, "-c", code, str(q),
+                               str(page)], cwd=root, capture_output=True,
+                              text=True, timeout=600, env=env)
+        assert proc.returncode == 0, proc.stderr[-4000:]
+        assert "RAISED" in proc.stdout, proc.stdout
 
 
 @pytest.mark.parametrize("d,family,depth", [(2, "global", 1),

@@ -194,6 +194,21 @@ def test_meta_index_kernels_allocate_and_count():
     assert c.analyze() == {"flops": 0, "bytes": float(want),
                            "bytes_unfused": float(want), "wire_bytes": 0.0,
                            "collectives": {}}
+    # the paged form: one op; 12 candidate ids name at most the 10 pages
+    P, Qc, C = 10, 3, 4
+    meta = lambda *shape, dtype=torch.int32: torch.empty(
+        shape, dtype=dtype, device="meta")
+    with StepCounter() as cp:
+        cnt_p = wf_ops.window_filter_paged(
+            meta(P, d, cap), meta(P), meta(Qc, d, 2), meta(Qc, C),
+            meta(Qc, dtype=torch.int64))
+    assert cuda_lib.LAUNCHES == before
+    assert (cnt_p.shape, cnt_p.dtype) == ((Qc,), torch.int32)
+    assert dict(cp.kernel_calls) == {"window_filter": 1}
+    want_p = wf_ops.filter_work_paged(P, Qc, C, d, cap)
+    assert want_p == (P * (d * cap * 4 + 4) + Qc * d * 2 * 4 + Qc * C * 4
+                      + Qc * 8 + Qc * 4)
+    assert cp.analyze()["bytes"] == float(want_p)
     # without a counter the meta route still only allocates
     assert wf_ops.window_filter(pts, rect, size).device.type == "meta"
     assert cuda_lib.LAUNCHES == before
