@@ -32,14 +32,16 @@ no result.  Phases, each printing one JSON line:
 4. main path: a 10M-row OSM-like index (d=2, K=32, heuristic paging) under
    the learned global curve, served on the card, Count and Range batches
    through the CUDA kernels (k_maxsplit + 1 encode launches a batch, one
-   `window_filter` launch a Count chunk, which reads its candidate pages
-   by id: the page gather runs only for Range), held bit for bit against
-   the plain-torch backend on the card and against brute force; the live
-   candidate pages a Count query and the profiled Count batch's busy ms,
-   launches and top kernels.  Then (`kernels_paged` line) the paged
-   filter on this index's own arrays: with the first Count batch's
-   candidates, chunk by chunk, and at a dense shape (16 queries with 256
-   live, distinct pages each), each against its twin, warm and cold;
+   `window_filter` launch a Count chunk and two `window_match` launches a
+   Range chunk, each reading its candidate pages by id: the page gather
+   runs in neither), held bit for bit against the plain-torch backend on
+   the card and against brute force; the live candidate pages a Count
+   query and the profiled Count and Range batches' busy ms, launches and
+   top kernels.  Then (`kernels_paged` line) the paged filter on this
+   index's own arrays: with the first Count batch's candidates, chunk by
+   chunk, and at a dense shape (16 queries with 256 live, distinct pages
+   each), and the paged match with the first Range batch's candidates
+   (max_hits 65,536), each against its twin, warm and cold;
 5. piecewise path: a 1M-row NYC-like index (d=3) under the learned
    piecewise curve, held the same way;
 6. database: the user's entry point, `repro_torch.api.Database`, on the
@@ -354,30 +356,41 @@ def flush_buffer(dev):
     return torch.empty(2 * l2 // 4, dtype=torch.int32, device=dev)
 
 
-def profiled_ms(fn, flush=None, iters: int = 30) -> tuple:
+def profiled_ms(fn, flush=None, iters: int = 30,
+                kernels=("window_ring_kernel",)) -> tuple:
     """The profiler's device time of one call (every device event but the
-    flush's fill) and of its filter kernels alone, means over `iters`
-    calls; the flush, if any, is written before each call."""
+    flush's fill), of its kernels named in `kernels` alone, and of each of
+    them by name, means over `iters` calls; the flush, if any, is written
+    before each call.  A window that recorded no device event at all is
+    run again, up to three times (a long run of this script can lose a
+    window's device records)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            if flush is not None:
-                flush.fill_(i)
-            fn()
-        torch.cuda.synchronize()
-    total = kernel = 0
-    for e in prof.profiler.kineto_results.events():
-        if (e.device_type() != DeviceType.CUDA
-                or "FillFunctor<int>" in e.name()):
-            continue
-        total += e.duration_ns()
-        if "filter_kernel" in e.name():
-            kernel += e.duration_ns()
-    return total / iters / 1e6, kernel / iters / 1e6
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                if flush is not None:
+                    flush.fill_(i)
+                fn()
+            torch.cuda.synchronize()
+        total, by_name = 0, dict.fromkeys(kernels, 0)
+        for e in prof.profiler.kineto_results.events():
+            if (e.device_type() != DeviceType.CUDA
+                    or "FillFunctor<int>" in e.name()):
+                continue
+            total += e.duration_ns()
+            for k in kernels:
+                if k in e.name():
+                    by_name[k] += e.duration_ns()
+        if total:
+            break
+    check(total > 0, "the profiler recorded no device event in three "
+                     "windows")
+    by_name = {k: v / iters / 1e6 for k, v in by_name.items()}
+    return total / iters / 1e6, sum(by_name.values()), by_name
 
 
 def profile_batch(fn) -> dict:
@@ -497,6 +510,14 @@ def phase_setup() -> dict:
     emit({"flash_f32_kernel": f32})
     check(not hmma or all(e["hmma"] > 0 for e in f32),
           f"the float32 flash kernel's SASS holds no HMMA: {f32}")
+    window_ptxas = ptxas_entries(ptxas, WINDOW_ENTRY, lambda m: {
+        "kernel": m.group(1) or "window_match_ids_kernel",
+        **({"d": int(m.group(2)) or "any",
+            "out": ("count", "bits", "mask")[int(m.group(3))]}
+           if m.group(1) else {})})
+    check(len(window_ptxas) == 16, f"the build log lists "
+          f"{len(window_ptxas)} window kernel instantiations, not 16 (the "
+          f"ring kernel's 5 d x 3 outputs and the id pass)")
     emit({"phase": "setup", "card": card, "build_s": build_s,
           "library": str(lib.relative_to(ROOT)),
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -508,9 +529,7 @@ def phase_setup() -> dict:
               "d": int(m.group(1)) or "any", "C": int(m.group(2)) or "any",
               "table": "smem" if m.group(3) == "1" else "l1"}),
           "encode_sass_instructions": encode_sass,
-          "filter_ptxas": ptxas_entries(ptxas, FILTER_ENTRY, lambda m: {
-              "kernel": "window_filter_kernel",
-              "d": int(m.group(1)) or "any"})})
+          "filter_ptxas": window_ptxas})
     return {"card": card, "int_ops_per_s": int_ops_per_s}
 
 
@@ -518,8 +537,9 @@ FLASH_ENTRY = re.compile(r"Compiling entry function '\S*?"
                          r"(flash_tc_kernel|flash_fwd_kernel)ILi(\d+)E")
 ENCODE_ENTRY = re.compile(r"Compiling entry function '\S*?"
                           r"sfc_encode_kernelILi(\d+)ELi(\d+)ELb([01])E")
-FILTER_ENTRY = re.compile(r"Compiling entry function '\S*?"
-                          r"window_filter_kernelILi(\d+)E")
+WINDOW_ENTRY = re.compile(r"Compiling entry function '\S*?"
+                          r"(?:(window_ring_kernel)ILi(\d+)ELi(\d+)E|"
+                          r"window_match_ids_kernel)")
 
 
 def ptxas_entries(log: str, entry: re.Pattern, label) -> list:
@@ -828,6 +848,23 @@ def paged_chunks(arrays, curve, batch) -> list:
     return out
 
 
+def range_chunks(arrays, curve, batch) -> list:
+    """The Range path's `window_match_paged` inputs for each q_chunk of
+    `batch`: (points, page_size, queries, cand, n_cand, max_hits)."""
+    import torch
+    from repro_torch.core import serve as tsv
+    from repro_torch.kernels.window_filter.ref import compact_rows
+    out = []
+    for queries, *split in tsv._chunks(arrays, batch, curve, K_MAXSPLIT,
+                                       Q_CHUNK, "cuda"):
+        live, _ = tsv._live_pages(arrays, queries, *split)
+        pidx = torch.arange(live.shape[1], device=live.device)[None]
+        cand, n_cand = compact_rows(live, pidx, MAX_CAND, 0)
+        out.append((arrays.points, arrays.page_size, queries.contiguous(),
+                    cand, n_cand, MAX_HITS))
+    return out
+
+
 def live_candidates(chunks) -> dict:
     """Live candidate pages a query (n_cand capped at max_cand) over the
     chunks, and how many queries overflowed max_cand."""
@@ -854,27 +891,50 @@ def filter_bytes_paged(page_size, cand, n_cand, d: int, cap: int) -> int:
             + int(live.sum()) * 4 + Qc * 8 + Qc * 4)
 
 
-def _hold_paged(name: str, chunks, flush, plain_iters: int = 2) -> dict:
-    """`window_filter_paged` on each chunk against its twin, bit for bit,
-    and its times per call, means over the chunks: `ms` the profiler's
-    device time of a call (its zeroing of the output and its kernel), warm
-    and `cold` (L2 flushed before each call), `kernel_ms` the kernel alone,
-    `plain_ms` the twin's; the bound, the bytes the chunks' data needs
-    (`filter_bytes_paged`: the distinct live pages' valid slots once) at
-    3.35 TB/s."""
+def match_bytes_paged(page_size, cand, n_cand, d: int, cap: int,
+                      max_hits: int) -> int:
+    """Bytes a paged match call must move for its data: what
+    `filter_bytes_paged` reads in, and out the (Qc, max_hits) int32 id
+    buffer and the (Qc,) int64 match counts."""
+    Qc = cand.shape[0]
+    return (filter_bytes_paged(page_size, cand, n_cand, d, cap) - Qc * 4
+            + Qc * max_hits * 4 + Qc * 8)
+
+
+def _hold_paged(name: str, chunks, flush, match: bool = False,
+                plain_iters: int = 2) -> dict:
+    """`window_filter_paged` (or, with `match`, `window_match_paged`) on
+    each chunk against its twin, bit for bit, and its times per call,
+    means over the chunks: `ms` the profiler's device time of a call (the
+    filter's zeroing of its output and its kernel; the match's two
+    kernels), warm and `cold` (L2 flushed before each call), `kernel_ms`
+    the kernels alone, `plain_ms` the twin's; the bound, the bytes the
+    chunks' data needs (`filter_bytes_paged`: the distinct live pages'
+    valid slots once; `match_bytes_paged` with the id buffer out) at 3.35
+    TB/s."""
     import torch
-    from repro_torch.kernels.window_filter.ops import window_filter_paged
-    from repro_torch.kernels.window_filter.ref import window_filter_paged_ref
+    from repro_torch.kernels.window_filter.ops import (window_filter_paged,
+                                                       window_match_paged)
+    from repro_torch.kernels.window_filter.ref import (
+        window_filter_paged_ref, window_match_paged_ref)
+    fn, twin = ((window_match_paged, window_match_paged_ref) if match else
+                (window_filter_paged, window_filter_paged_ref))
+    kernels = (("window_ring_kernel", "window_match_ids_kernel") if match
+               else ("window_ring_kernel",))
     err, nbytes = 0, 0
     for args in chunks:
-        got = window_filter_paged(*args)
-        want = window_filter_paged_ref(*args)
+        got = fn(*args)
+        want = twin(*args)
         torch.cuda.synchronize()
-        err = max(err, max_abs_err(got, want))
-        _, d, cap = args[0].shape
-        nbytes += filter_bytes_paged(args[1], args[3], args[4], d, cap)
-    check(err == 0, f"{name}: window_filter_paged disagrees with its plain "
-                    f"twin (max {err})")
+        for g, w in zip(got, want) if match else [(got, want)]:
+            err = max(err, max_abs_err(g, w))
+        points, page_size, _, cand, n_cand = args[:5]
+        _, d, cap = points.shape
+        nbytes += (match_bytes_paged(page_size, cand, n_cand, d, cap,
+                                     args[5]) if match else
+                   filter_bytes_paged(page_size, cand, n_cand, d, cap))
+    check(err == 0, f"{name}: {fn.__name__} disagrees with its plain twin "
+                    f"(max {err})")
     n = len(chunks)
 
     def each(cold: bool):
@@ -882,28 +942,54 @@ def _hold_paged(name: str, chunks, flush, plain_iters: int = 2) -> dict:
             for i, args in enumerate(chunks):
                 if cold:
                     flush.fill_(i)
-                window_filter_paged(*args)
+                fn(*args)
         return run
 
-    warm, warm_k = profiled_ms(each(False), iters=10)
-    cold, cold_k = profiled_ms(each(True), iters=10)
-    plain = kernel_times(lambda: [window_filter_paged_ref(*a)
-                                  for a in chunks], iters=plain_iters)
+    warm, warm_k, warm_by = profiled_ms(each(False), iters=10,
+                                        kernels=kernels)
+    cold, cold_k, cold_by = profiled_ms(each(True), iters=10,
+                                        kernels=kernels)
+    plain = kernel_times(lambda: [twin(*a) for a in chunks],
+                         iters=plain_iters)
     b_ms = nbytes / n / HBM_BYTES_PER_S * 1e3
     return {"calls": n, "max_abs_err": err, "ms": warm / n,
             "kernel_ms": warm_k / n, "cold_ms": cold / n,
             "cold_kernel_ms": cold_k / n, "plain_ms": plain["ms"] / n,
             "bound_ms": b_ms, "bound_by": "bytes", "bytes": nbytes / n,
             "share": b_ms / (warm / n), "cold_share": b_ms / (cold / n),
+            "by_kernel_ms": {k: v / n for k, v in warm_by.items()},
+            "cold_by_kernel_ms": {k: v / n for k, v in cold_by.items()},
             "library_ms": None}
+
+
+def _launch_floor(chunks, match: bool) -> dict:
+    """What a paged call costs with no work: the same chunks with every
+    n_cand 0 (no live item, so no page is read and no id written beyond
+    the match's -1s), the profiler's device time a call, warm, by
+    kernel."""
+    import torch
+    from repro_torch.kernels.window_filter.ops import (window_filter_paged,
+                                                       window_match_paged)
+    fn = window_match_paged if match else window_filter_paged
+    empty = [(*c[:4], torch.zeros_like(c[4]), *c[5:]) for c in chunks]
+    kernels = (("window_ring_kernel", "window_match_ids_kernel") if match
+               else ("window_ring_kernel",))
+    total, _, by_name = profiled_ms(lambda: [fn(*a) for a in empty],
+                                    iters=10, kernels=kernels)
+    n = len(chunks)
+    return {"ms": total / n, "by_kernel_ms": {k: v / n
+                                              for k, v in by_name.items()}}
 
 
 def phase_paged_filter(served: dict, seed: int) -> dict:
     """The paged filter on the main index's own `ServingArrays`: (b) with
     the candidates of the main phase's first Count batch, chunk by chunk;
     (c) at a dense shape, its first chunk's 16 queries with 256 live,
-    distinct non-empty pages each.  Each against its twin; times warm and
-    cold (`_hold_paged`)."""
+    distinct non-empty pages each.  The paged match (`match_paged`) with
+    the candidates of the main phase's first Range batch, chunk by chunk
+    (max_hits 65,536).  Each against its twin; times warm and cold
+    (`_hold_paged`), and the paged filter's and match's `floor`: the
+    same calls with no live candidate (`_launch_floor`)."""
     import numpy as np
     import torch
     arrays, curve = served["arrays"], served["curve"]
@@ -924,8 +1010,16 @@ def phase_paged_filter(served: dict, seed: int) -> dict:
     dense = {**_hold_paged("kernels_paged: dense", [dense_args], flush),
              "shape": [Q_CHUNK, MAX_CAND, *points.shape[1:]],
              "pages": int(points.shape[0])}
+    r_chunks = range_chunks(arrays, curve, served["batch"])
+    match = {**_hold_paged("kernels_paged: match", r_chunks, flush,
+                           match=True),
+             "live_candidates": live_candidates(
+                 [c[:5] for c in r_chunks]),
+             "max_hits": MAX_HITS}
+    paged["floor"] = _launch_floor(chunks, False)
+    match["floor"] = _launch_floor(r_chunks, True)
     del flush
-    out = {"paged": paged, "paged_dense": dense}
+    out = {"paged": paged, "paged_dense": dense, "match_paged": match}
     emit({"phase": "kernels_paged", "card": CARD, **out})
     return out
 
@@ -991,8 +1085,8 @@ def phase_kernels(main_curve, pw_curve, int_ops_per_s: float) -> dict:
         if shape == "path":
             # cold: L2 (50 MB) flushed by a 2 x L2 write before each
             # launch; the kernel's own time
-            _, cold = profiled_ms(lambda: window_filter(pts, rect, size),
-                                  flush, iters=20)
+            _, cold, _ = profiled_ms(
+                lambda: window_filter(pts, rect, size), flush, iters=20)
             row = out["window_filter"]["path"]
             row["cold"] = {"ms": cold, "bound_ms": row["bound_ms"],
                            "share": row["bound_ms"] / cold}
@@ -1099,18 +1193,19 @@ def _serve(arrays, curve, batches, backend: str) -> tuple:
     """Run every batch through Count, then through Range; results on the
     host, the wall-clock seconds of each (ending in a synchronize), the
     launch counts after the Count batches, and the calls of the candidate
-    page gather (`core.serve._gather`) by Count and by Range."""
+    page gather (`ref.gather_pages`, which only the plain twins run) by
+    Count and by Range."""
     import torch
-    from repro_torch.core import serve as tsv
     from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.window_filter import ref as wf_ref
     qfn, rfn = _fns(curve, backend)
-    gather, gathered = tsv._gather, []
+    gather, gathered = wf_ref.gather_pages, []
 
     def counted(*a):
         gathered.append(1)
         return gather(*a)
 
-    tsv._gather = counted
+    wf_ref.gather_pages = counted
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1123,7 +1218,7 @@ def _serve(arrays, curve, batches, backend: str) -> tuple:
         torch.cuda.synchronize()
         t2 = time.perf_counter()
     finally:
-        tsv._gather = gather
+        wf_ref.gather_pages = gather
     to_host = lambda outs: [tuple(t.cpu() for t in o) for o in outs]
     return (to_host(counts), to_host(ranges), t1 - t0, t2 - t1,
             after_count, (count_gathers, len(gathered) - count_gathers))
@@ -1223,10 +1318,15 @@ def _hold_path(name: str, data, index, curve, n_batches: int, seed: int,
     check(per_batch["count"]["window_filter"] == BATCH // Q_CHUNK,
           f"{name}: {per_batch['count']['window_filter']} window_filter "
           f"launches a Count batch, not one a chunk ({BATCH // Q_CHUNK})")
-    check(gathers[0] == 0 and gathers[1] == n_batches * BATCH // Q_CHUNK,
+    check(per_batch["range"]["window_match"] == 2 * BATCH // Q_CHUNK,
+          f"{name}: {per_batch['range']['window_match']} window_match "
+          f"launches a Range batch, not two a chunk ({2 * BATCH // Q_CHUNK})")
+    check(per_batch["range"]["window_filter"] == 0,
+          f"{name}: Range launched window_filter")
+    check(gathers == (0, 0),
           f"{name}: the candidate page gather ran {gathers[0]} times in "
-          f"Count (none: its kernel reads pages by id) and {gathers[1]} in "
-          f"Range (one a chunk)")
+          f"Count and {gathers[1]} in Range (none: their kernels read "
+          f"pages by id)")
     live = live_candidates(paged_chunks(arrays, curve, batches[0]))
     res = {
         "phase": name, "rows": int(index.n), "d": int(index.d),
@@ -3580,9 +3680,13 @@ def _on_meta(tree):
     return tree
 
 
-def _hold_counts(name: str, card, meta, launches: dict) -> dict:
+def _hold_counts(name: str, card, meta, launches: dict,
+                 per_call: dict = None) -> dict:
     """The card's count of a step against meta's: totals and calls of
-    every op name equal, each kernel's calls equal to its launches."""
+    every op name equal, each kernel's launches equal to its calls times
+    its launches a call (`per_call`, 1 unless named: the paged match
+    launches twice a call)."""
+    per_call = per_call or {}
     got, want = card.analyze(), meta.analyze()
     ops_card, ops_meta = dict(card.op_counts), dict(meta.op_counts)
     diff = {k: (ops_card.get(k), ops_meta.get(k))
@@ -3593,9 +3697,10 @@ def _hold_counts(name: str, card, meta, launches: dict) -> dict:
           f"op calls that differ (card, meta): {diff}")
     calls = dict(card.kernel_calls)
     for key, n in launches.items():
-        check(calls.get(key, 0) == n,
+        check(calls.get(key, 0) * per_call.get(key, 1) == n,
               f"cost_model {name}: {calls.get(key, 0)} counted calls of "
-              f"{key} against {n} launches")
+              f"{key} ({per_call.get(key, 1)} launches each) against {n} "
+              f"launches")
     return {"flops": got["flops"], "bytes": got["bytes"],
             "ops": sum(ops_card.values()), "op_names": len(ops_card),
             "kernel_calls": calls, "launches": {k: v for k, v in
@@ -3607,9 +3712,11 @@ def _kernel_bytes_vs_bounds(counters, curve) -> dict:
     shapes: flash `flash_bound`'s flops and bytes, the encode
     `encode_work`, the window kernels the bound's bytes with every slot
     valid (the bound itself counts the valid slots of its data), the paged
-    filter's over min(Qc * C, P) distinct pages (`filter_work_paged`)."""
+    filter's and match's over min(Qc * C, P) distinct pages
+    (`filter_work_paged`, `match_work_paged`)."""
     from repro_torch.core.curve import curve_tables
-    from repro_torch.kernels.window_filter.ops import filter_work_paged
+    from repro_torch.kernels.window_filter.ops import (filter_work_paged,
+                                                       match_work_paged)
     out = {}
     for counter in counters:
         for r in counter.op_log():
@@ -3629,6 +3736,9 @@ def _kernel_bytes_vs_bounds(counters, curve) -> dict:
             elif key == "window_filter" and len(shapes) == 5:
                 (P, d, cap), _, _, (Qc, C), _ = shapes
                 want = (0, n * filter_work_paged(P, Qc, C, d, cap))
+            elif key == "window_match" and len(shapes) == 6:
+                (P, d, cap), _, _, (Qc, C), _, (_, H) = shapes
+                want = (0, n * match_work_paged(P, Qc, C, d, cap, H))
             else:
                 (G, d, cap) = shapes[0]
                 out_bytes = G * 4 if key == "window_filter" else G * cap
@@ -3738,7 +3848,8 @@ def phase_cost_model(seed: int, served: dict, lm: dict,
     for kind, fn in zip(("count", "range"), _fns(curve, "cuda")):
         _, card, launches = _count(fn, arrays, queries)
         _, meta, _ = _count(fn, m_arrays, m_queries)
-        held[kind] = _hold_counts(kind, card, meta, launches)
+        held[kind] = _hold_counts(kind, card, meta, launches,
+                                  {"window_match": 2})
         counters.append(card)
         if kind == "count":
             count_meta = meta
@@ -4194,8 +4305,9 @@ def main(argv=None) -> int:
     kern = phase_kernels(main_curve, pw_curve, int_ops_per_s)
     kern["sfc_encode_pool"] = phase_pool_kernel(smbo, int_ops_per_s)
     main_res = phase_main(osm, args.batches, main_curve)
-    kern["window_filter"].update(phase_paged_filter(main_res["_served"],
-                                                    args.seed))
+    paged = phase_paged_filter(main_res["_served"], args.seed)
+    kern["window_match"]["paged"] = paged.pop("match_paged")
+    kern["window_filter"].update(paged)
     pw_res = phase_piecewise(nyc, args.batches, pw_curve)
     pw_res.pop("_served")
     db_res = phase_database(osm, args.batches, args.seed, main_res)
@@ -4226,6 +4338,9 @@ def main(argv=None) -> int:
         if name.startswith("flash_attention"):
             k, path, pw_path = flash[FLASH_ROWS[name]], lm, None
             library_ms = k["library_ms"]
+        elif name == "window_match":
+            # the main path's shape: Range's chunks, pages read by id
+            k = kern[name]["paged"]
         elif name == "sfc_encode":
             k = kern[name]["global_path"]
         elif name == "sfc_encode_pool":
@@ -4251,6 +4366,10 @@ def main(argv=None) -> int:
             row.update(cold=wf["path"]["cold"], paged=wf["paged"],
                        paged_dense=wf["paged_dense"],
                        smem_bytes=wf["smem_bytes"])
+        if name == "window_match":
+            row.update(cold_ms=k["cold_ms"], share=k["share"],
+                       cold_share=k["cold_share"],
+                       tpu_contract=kern[name]["path"])
         if pw_path is not None:
             row["piecewise_launches"] = pw_path["launches"][name]
         row["database_launches"] = db_res["launches"][name]

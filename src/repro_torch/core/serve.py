@@ -10,9 +10,10 @@ The paper's per-query page walk is re-expressed as a static-shape pipeline
   contain    — pages whose MBR ⊆ query contribute size() with *no* gather
                (the paper's containment shortcut; Count only)
   compact    — top-C candidate page ids per query (static bound)
-  filter     — points-in-rectangle count or mask: Count's window_filter
-               kernel reads the candidate pages by id, one launch a chunk;
-               Range gathers the candidate pages' points for window_match
+  filter     — points-in-rectangle count or matching row ids, the
+               candidate pages read by id: Count's window_filter kernel
+               (one launch a chunk), Range's window_match (two: the hit
+               words, then the ids written into the static buffer)
 
 Every function here takes ``backend``: ``"cuda"`` (default) runs the
 hand-written kernels for split/z-range encodes and the filter; ``"torch"``
@@ -36,7 +37,9 @@ import numpy as np
 import torch
 
 from ..dist.sharding import P
-from ..kernels.window_filter.ops import window_filter_paged, window_match
+from ..kernels.window_filter.ops import (window_filter_paged,
+                                        window_match_paged)
+from ..kernels.window_filter.ref import compact_rows
 from .curve import as_curve
 from .device import resolve_device
 from .index import LMSFCIndex
@@ -195,42 +198,6 @@ def _live_pages(arrays: ServingArrays, queries, valid, zlo, zhi):
     return ov & intersect, (qlo, qhi, mlo, mhi)
 
 
-def _compact(mask: torch.Tensor, values: torch.Tensor, width: int,
-             fill: int):
-    """Top-`width` compaction of each row of `mask` (Qc, N): returns the
-    (Qc, width) int32 buffer of `values` at the first `width` set
-    positions (`fill` elsewhere) and the (Qc,) int64 number set.  Writes
-    past `width` go to a spare row that is sliced off (the reference's
-    scatter with ``mode="drop"``), never to a real row."""
-    Qc, N = mask.shape
-    pos = torch.cumsum(mask, dim=1) - 1           # (Qc, N) int64
-    n_set = pos[:, -1] + 1
-    ok = mask & (pos < width)
-    rows = torch.where(ok, torch.arange(Qc, device=mask.device)[:, None], Qc)
-    cols = torch.where(ok, pos, 0)
-    out = torch.full((Qc + 1, width), fill, dtype=torch.int32,
-                     device=mask.device)
-    out.index_put_((rows.reshape(-1), cols.reshape(-1)),
-                   values.expand(Qc, N).reshape(-1).to(torch.int32))
-    return out[:Qc], n_set
-
-
-def _gather(arrays: ServingArrays, queries, cand, n_cand, max_cand):
-    """Candidate pages' points, sizes (0 past the candidate count) and the
-    broadcast query rects, flattened to the filter kernels' (G, ...): the
-    Range path's input to `window_match` (Count reads its pages by id)."""
-    Qc = queries.shape[0]
-    cand_valid = (torch.arange(max_cand, device=cand.device)[None, :]
-                  < torch.clamp(n_cand, max=max_cand)[:, None])
-    cl = cand.to(torch.int64)
-    pts = arrays.points[cl]                       # (Qc, C, d, cap)
-    size = torch.where(cand_valid, arrays.page_size[cl], 0)
-    _, _, d, cap = pts.shape
-    rect = queries[:, None].expand(Qc, max_cand, d, 2)
-    return (pts.reshape(-1, d, cap), rect.reshape(-1, d, 2).contiguous(),
-            size.reshape(-1).to(torch.int32).contiguous())
-
-
 def _chunks(arrays: ServingArrays, queries, curve, k_maxsplit: int,
             q_chunk: int, backend: str) -> list:
     """The batch in q_chunk pieces, each with its split state: (queries,
@@ -265,7 +232,7 @@ def _count_candidates(arrays: ServingArrays, queries, valid, zlo, zhi, *,
     base = torch.sum(torch.where(full, arrays.page_size[None, :], 0), dim=1)
     # ---- compact: top-C partial candidates -------------------------------
     pidx = torch.arange(partial.shape[1], device=partial.device)[None]
-    cand, n_cand = _compact(partial, pidx, max_cand, 0)
+    cand, n_cand = compact_rows(partial, pidx, max_cand, 0)
     return base, cand, n_cand
 
 
@@ -326,18 +293,12 @@ def make_range_fn(curve, *, k_maxsplit: int = 4, max_cand: int = 64,
         live, _ = _live_pages(arrays, queries, *split)
         # ---- compact: top-C candidate pages ------------------------------
         pidx = torch.arange(live.shape[1], device=live.device)[None]
-        cand, n_cand = _compact(live, pidx, max_cand, 0)
+        cand, n_cand = compact_rows(live, pidx, max_cand, 0)
         cand_over = n_cand > max_cand
-        # ---- gather + match (index-emitting window filter) ---------------
-        pts, rect, size = _gather(arrays, queries, cand, n_cand, max_cand)
-        cap = pts.shape[2]
-        mask = window_match(pts, rect, size, backend=backend)
-        mask = mask.reshape(-1, max_cand * cap)
-        gid = (cand[:, :, None] * cap
-               + torch.arange(cap, dtype=torch.int32, device=cand.device))
-        # ---- compact matches into the static id buffer -------------------
-        ids, n_hits = _compact(mask, gid.reshape(-1, max_cand * cap),
-                               max_hits, -1)
+        # ---- match the candidate pages, read by id, into the id buffer ---
+        ids, n_hits = window_match_paged(arrays.points, arrays.page_size,
+                                         queries.contiguous(), cand, n_cand,
+                                         max_hits, backend=backend)
         hit_over = n_hits > max_hits
         return (ids, n_hits.to(torch.int32), cand_over.to(torch.int32),
                 hit_over.to(torch.int32))

@@ -1,5 +1,5 @@
 // Points-in-rectangle filter over candidate pages: counts (window_filter)
-// and membership masks (window_match).
+// and matching row ids or membership masks (window_match).
 //
 // Replaces the Pallas TPU kernels in src/repro/kernels/window_filter/kernel.py:
 // `window_filter_pallas` (body `_filter_kernel`) and `window_match_pallas`
@@ -12,21 +12,32 @@
 //
 // Bound on the H100: memory.  Each coordinate is read once and takes two
 // compares, far below the card's integer rate, so the least time is the
-// bytes of the valid slots over the HBM bandwidth (3.35 TB/s).
+// bytes of the valid slots (and of the ids written) over the HBM
+// bandwidth (3.35 TB/s).
 //
-// window_filter reads the candidate pages by id itself (the TPU kernel's
-// scalar prefetch becomes a block that loads its own indices), so the
-// Count path copies no gathered pages.  Inputs: points (P, d, cap), the
-// index's page array; page_size (P,); queries (Qc, d, 2); cand (Qc, C)
-// page ids in [0, P) (a live id outside it traps the kernel); n_cand
-// (Qc,) int64, the live candidates of each query.  Out:
-// (Qc,) int32, for each query the hits summed over its live candidates
-// c < clamp(n_cand[q], 0, C), each page's slots s < clamp(size, 0, cap).
+// Both read the candidate pages by id themselves (the TPU kernel's scalar
+// prefetch becomes a block that loads its own indices), so the serving
+// path copies no gathered pages.  Inputs: points (P, d, cap), the index's
+// page array; page_size (P,); queries (Qc, d, 2); cand (Qc, C) page ids in
+// [0, P) (a live id outside it traps the kernel); n_cand (Qc,) int64, the
+// live candidates of each query.  Item (q, c) is live when c <
+// clamp(n_cand[q], 0, C); its page's slots s < clamp(size, 0, cap) count.
 // Without cand the page of item (q, c) is q*C + c, and without n_cand
-// every item is live: the TPU contract is the case Qc = G, C = 1 with
+// every item is live: the TPU contracts are the case Qc = G, C = 1 with
 // neither, the pages their own queries.
 //
-// Design: persistent blocks, about as many as fit on the SMs, split the
+// One ring kernel serves three outputs:
+// - count (window_filter): (Qc,) int32, each query's hits summed over its
+//   live items;
+// - bits (window_match, pass 1 of the Range path): for each live item its
+//   hit count (Qc, C) int32 and its hits as (Qc, C, W) uint32 words, W =
+//   ceil(cap / 32), bit s % 32 of word s / 32 for slot s (warp ballots);
+//   all W words of an item with a valid slot are written (0 past them);
+// - mask (window_match, the TPU contract): the (G, cap) 0/1 byte mask.
+// Pass 2 of the Range path (window_match_ids_kernel) turns the counts and
+// words into row ids: see there.
+//
+// The ring: persistent blocks, about as many as fit on the SMs, split the
 // live (query, candidate) items in contiguous runs; dead items are never
 // touched.  A block is one producer warp and four consumer warps around a
 // ring of kStages tiles in dynamic shared memory.  The producer's lanes
@@ -37,40 +48,47 @@
 // % 4 == 0, so each copy starts at the row's aligned-down address and the
 // consumers read from the offset it leaves (the slack lies inside the
 // points tensor's allocation, which the caching allocator rounds up to
-// 512 bytes).  Consumers compare from shared memory, the tile's rectangle
-// in registers (d <= 4) or shared memory, add their warp's hits into the
-// stage's count and release it on its "empty" mbarrier.  The producer
-// reads each stage's count when it reclaims the stage and sums a query's
-// tiles in a register: one int32 atomicAdd a (block, query) into an out
-// the launch zeroes (integer sums: exact in any order).  In the TPU
-// contract each query's one item lies in one block, so its count is
-// stored and nothing is zeroed.
-//
-// window_match keeps the gathered contract: one block of 256 threads per
-// pair g, threads striding over the slots (coalesced), the 0/1 mask
-// written as bytes (the ops-level contract is a bool mask).
+// 512 bytes).  T is a multiple of 32 whenever a page spans several tiles,
+// so a tile's hit words are whole.  Consumers compare from shared memory,
+// the tile's rectangle in registers (d <= 4) or shared memory, add their
+// warp's hits into the stage's count (and store the tile's words or mask
+// bytes) and release it on its "empty" mbarrier.  The producer reads each
+// stage's count when it reclaims the stage and sums a key's tiles in a
+// register: for counts the key is the query, one int32 atomicAdd a
+// (block, query) into an out the launch zeroes (integer sums: exact in any
+// order); for bits the key is the item, which lies in one block, so its
+// count is stored (as is a query's count in the TPU contract, where
+// nothing is zeroed).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kMaxDims = 32;
 constexpr unsigned kFull = 0xffffffffu;
 
-// ---- window_filter ---------------------------------------------------------
+// ---- the ring kernel -------------------------------------------------------
 
 // The ring's shape: 4 consumer warps, 4 stages of at most 16 KB of points
 constexpr int kConsumerWarps = 4;
-constexpr int kFilterThreads = 32 * (kConsumerWarps + 1);
+constexpr int kRingThreads = 32 * (kConsumerWarps + 1);
 constexpr int kStages = 4;
 constexpr int kStageBytes = 16384;
 
+// What the consumers make of a tile
+constexpr int kCount = 0;   // hits summed per query (window_filter)
+constexpr int kBits = 1;    // hit words and per-item counts (window_match)
+constexpr int kMask = 2;    // 0/1 bytes, the TPU contract (window_match)
+
 struct Stage {          // one tile, described by the producer
-  int q;                // its query
+  int key;              // the sum it adds to: its query (kCount), its item
+  int item;             // q * C + c
+  int t0;               // its first slot in the page
   int n;                // its slots; -1: no more tiles
+  int tail;             // slots past the page's valid ones to zero: to
+                        // cap (kMask) or to the last hit word (kBits)
   int count;            // hits, added by the consumer warps
-  int pad;
+  int pad[2];
   uint32_t lo[kMaxDims], hi[kMaxDims];
   int off[kMaxDims];    // words from row i's copy start to slot t0
 };
@@ -135,9 +153,11 @@ struct Args {
   const uint32_t* queries;
   const int* cand;          // null: page of item (q, c) is q*C + c
   const long long* n_cand;  // null: every item is live
-  int* out;
-  int P, Qc, C, cap, T, RS;
-  bool store;               // each query's items lie in one block
+  int* out;                 // kCount: (Qc,) counts; kBits: (Qc*C,) counts
+  uint32_t* bits;           // kBits: (Qc*C, W) hit words
+  uint8_t* mask;            // kMask: (Qc*C, cap) bytes
+  int P, Qc, C, cap, T, RS, W;
+  bool store;               // each key's items lie in one block
 };
 
 // Live items of a run of 32 queries from `qb`: this lane's query's count
@@ -161,10 +181,10 @@ __device__ __forceinline__ void load_run(const Args& a, Run& r, int lane) {
   r.total = __shfl_sync(kFull, r.incl, 31);
 }
 
-template <int D>
-__device__ void filter_producer(const Args& a, int d, uint64_t* full,
-                                uint64_t* empty, Stage* st, uint32_t* tiles,
-                                int lane) {
+template <int M>
+__device__ void ring_producer(const Args& a, int d, uint64_t* full,
+                              uint64_t* empty, Stage* st, uint32_t* tiles,
+                              int lane) {
   // this block's share [start, end) of the L live items
   int L = a.Qc * a.C;
   if (a.n_cand) {
@@ -189,11 +209,11 @@ __device__ void filter_producer(const Args& a, int d, uint64_t* full,
   const int tile_words = d * a.RS;
 
   int posted = 0;           // stages posted
-  int run_q = -1, run_sum = 0;
-  auto emit = [&](int q, int v) {
-    if (lane == 0) {
-      if (a.store) a.out[q] = v;
-      else if (v) atomicAdd(a.out + q, v);
+  int run_key = -1, run_sum = 0;
+  auto emit = [&](int key, int v) {
+    if (lane == 0 && a.out) {
+      if (a.store) a.out[key] = v;
+      else if (v) atomicAdd(a.out + key, v);
     }
   };
   // wait until stage k's consumers are done and take its count (lane 0
@@ -202,10 +222,10 @@ __device__ void filter_producer(const Args& a, int d, uint64_t* full,
     const int s = k % kStages;
     mbar_wait(smem_u32(empty + s), (k / kStages) & 1);
     if (lane == 0) {
-      const int q = st[s].q;
-      if (q != run_q) {
-        if (run_q >= 0) emit(run_q, run_sum);
-        run_q = q;
+      const int key = st[s].key;
+      if (key != run_key) {
+        if (run_key >= 0) emit(run_key, run_sum);
+        run_key = key;
         run_sum = 0;
       }
       run_sum += st[s].count;
@@ -229,10 +249,10 @@ __device__ void filter_producer(const Args& a, int d, uint64_t* full,
     }
     const int q_k = r.qb + l;
     const int c_k = rel - __shfl_sync(kFull, r.incl - r.v, l);
+    const int item_k = q_k * a.C + c_k;
     int p_k = 0, n_k = 0;
     if (lane < m) {
-      const long long item = (long long)q_k * a.C + c_k;
-      p_k = a.cand ? a.cand[item] : (int)item;
+      p_k = a.cand ? a.cand[item_k] : item_k;
       // a live id outside [0, P) stops the kernel, as an index assert
       // would: the launch's context reports the fault at its next sync
       if ((unsigned)p_k >= (unsigned)a.P) __trap();
@@ -242,7 +262,16 @@ __device__ void filter_producer(const Args& a, int d, uint64_t* full,
       const int p = __shfl_sync(kFull, p_k, k);
       const int n = __shfl_sync(kFull, n_k, k);
       const int q = __shfl_sync(kFull, q_k, k);
-      if (n == 0 && a.store) emit(q, 0);
+      const int item = __shfl_sync(kFull, item_k, k);
+      const int key = M == kCount ? q : item;
+      if (n == 0) {
+        if (a.store) emit(key, 0);
+        if constexpr (M == kMask) {
+          for (int s = lane; s < a.cap; s += 32) {
+            a.mask[(size_t)item * a.cap + s] = 0;
+          }
+        }
+      }
       for (int t0 = 0; t0 < n; t0 += a.T) {
         const int nt = min(a.T, n - t0);
         const int s = posted % kStages;
@@ -263,8 +292,13 @@ __device__ void filter_producer(const Args& a, int d, uint64_t* full,
           st[s].off[lane] = off;
         }
         if (lane == 0) {
-          st[s].q = q;
+          st[s].key = key;
+          st[s].item = item;
+          st[s].t0 = t0;
           st[s].n = nt;
+          st[s].tail = t0 + nt < n ? 0
+                       : M == kMask ? a.cap - n
+                       : M == kBits ? a.W * 32 - n : 0;
           st[s].count = 0;
         }
         const int total = __reduce_add_sync(kFull, bytes);
@@ -289,13 +323,14 @@ __device__ void filter_producer(const Args& a, int d, uint64_t* full,
     mbar_arrive(smem_u32(full + s));
   }
   for (int k = max(0, posted - kStages + 1); k < posted; ++k) reclaim(k);
-  if (lane == 0 && run_q >= 0) emit(run_q, run_sum);
+  if (lane == 0 && run_key >= 0) emit(run_key, run_sum);
 }
 
-template <int D>
-__device__ void filter_consumer(const Args& a, int d, uint64_t* full,
-                                uint64_t* empty, const Stage* st,
-                                const uint32_t* tiles, int lane) {
+template <int D, int M>
+__device__ void ring_consumer(const Args& a, int d, uint64_t* full,
+                              uint64_t* empty, const Stage* st,
+                              const uint32_t* tiles, int lane) {
+  const int warp = threadIdx.x >> 5;
   const int tile_words = d * a.RS;
   for (int k = 0;; ++k) {
     const int s = k % kStages;
@@ -303,33 +338,55 @@ __device__ void filter_consumer(const Args& a, int d, uint64_t* full,
     const int n = st[s].n;
     if (n < 0) break;
     const uint32_t* tile = tiles + (size_t)s * tile_words;
-    int cnt = 0;
+    uint32_t lo[D > 0 ? D : 1], hi[D > 0 ? D : 1];
+    const uint32_t* row[D > 0 ? D : 1];
     if constexpr (D > 0) {
-      uint32_t lo[D], hi[D];
-      const uint32_t* row[D];
 #pragma unroll
       for (int i = 0; i < D; ++i) {
         lo[i] = st[s].lo[i];
         hi[i] = st[s].hi[i];
         row[i] = tile + i * a.RS + st[s].off[i];
       }
-      for (int x = threadIdx.x; x < n; x += 32 * kConsumerWarps) {
-        bool ok = true;
+    }
+    // slot x of the tile (x < n) inside the rectangle
+    auto inside = [&](int x) {
+      bool ok = true;
+      if constexpr (D > 0) {
 #pragma unroll
         for (int i = 0; i < D; ++i) {
           const uint32_t v = row[i][x];
           ok &= (lo[i] <= v) & (v <= hi[i]);
         }
-        cnt += ok;
-      }
-    } else {
-      for (int x = threadIdx.x; x < n; x += 32 * kConsumerWarps) {
-        bool ok = true;
+      } else {
         for (int i = 0; i < d; ++i) {
           const uint32_t v = tile[i * a.RS + st[s].off[i] + x];
           ok &= (st[s].lo[i] <= v) & (v <= st[s].hi[i]);
         }
-        cnt += ok;
+      }
+      return ok;
+    };
+    int cnt = 0;
+    if constexpr (M == kCount) {
+      for (int x = threadIdx.x; x < n; x += 32 * kConsumerWarps) {
+        cnt += inside(x);
+      }
+    } else {
+      // a warp takes 32 consecutive slots at a time: one hit word
+      const int item = st[s].item, t0 = st[s].t0;
+      const int lim = n + st[s].tail;
+      for (int base = warp * 32; base < lim;
+           base += 32 * kConsumerWarps) {
+        const int x = base + lane;
+        const bool ok = x < n && inside(x);
+        if constexpr (M == kBits) {
+          const uint32_t word = __ballot_sync(kFull, ok);
+          if (lane == 0) {
+            a.bits[(size_t)item * a.W + ((t0 + base) >> 5)] = word;
+            cnt += __popc(word);
+          }
+        } else {
+          if (x < lim) a.mask[(size_t)item * a.cap + t0 + x] = ok;
+        }
       }
     }
     cnt = __reduce_add_sync(kFull, cnt);
@@ -340,9 +397,9 @@ __device__ void filter_consumer(const Args& a, int d, uint64_t* full,
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kFilterThreads)
-window_filter_kernel(Args a, int d_arg) {
+template <int D, int M>
+__global__ void __launch_bounds__(kRingThreads)
+window_ring_kernel(Args a, int d_arg) {
   const int d = D > 0 ? D : d_arg;
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
@@ -359,101 +416,171 @@ window_filter_kernel(Args a, int d_arg) {
   }
   __syncthreads();
   if (warp == kConsumerWarps) {
-    filter_producer<D>(a, d, full, empty, st, tiles, lane);
+    ring_producer<M>(a, d, full, empty, st, tiles, lane);
   } else {
-    filter_consumer<D>(a, d, full, empty, st, tiles, lane);
+    ring_consumer<D, M>(a, d, full, empty, st, tiles, lane);
   }
 }
 
-using FilterKernel = void (*)(Args, int);
+using RingKernel = void (*)(Args, int);
 
-FilterKernel filter_kernel(int d) {
+template <int M>
+RingKernel ring_kernel_for(int d) {
   switch (d) {
-    case 1: return window_filter_kernel<1>;
-    case 2: return window_filter_kernel<2>;
-    case 3: return window_filter_kernel<3>;
-    case 4: return window_filter_kernel<4>;
-    default: return window_filter_kernel<0>;
+    case 1: return window_ring_kernel<1, M>;
+    case 2: return window_ring_kernel<2, M>;
+    case 3: return window_ring_kernel<3, M>;
+    case 4: return window_ring_kernel<4, M>;
+    default: return window_ring_kernel<0, M>;
   }
 }
 
-// ---- window_match ----------------------------------------------------------
-
-__device__ __forceinline__ int valid_slots(const int* __restrict__ size,
-                                           int g, int cap) {
-  return min(max(size[g], 0), cap);
+RingKernel ring_kernel(int d, int mode) {
+  switch (mode) {
+    case kCount: return ring_kernel_for<kCount>(d);
+    case kBits: return ring_kernel_for<kBits>(d);
+    default: return ring_kernel_for<kMask>(d);
+  }
 }
 
-__device__ __forceinline__ void stage_rect(const uint32_t* __restrict__ rect,
-                                           int g, int d, uint32_t* lo,
-                                           uint32_t* hi) {
-  if (threadIdx.x < d) {
-    const uint32_t* r = rect + ((size_t)g * d + threadIdx.x) * 2;
-    lo[threadIdx.x] = r[0];
-    hi[threadIdx.x] = r[1];
-  }
-  __syncthreads();
-}
+// ---- window_match pass 2: hit words to row ids -----------------------------
+//
+// Grid: F blocks a query (F from the SM count, so that a chunk of 16
+// queries fills the card).  Every block of query q scans q's live items'
+// counts (exclusive, in shared memory, 256 at a time), which gives each
+// item's first position in the id buffer and, at the end, n_hits[q] (every
+// match, past max_hits too).  Warp w of block f expands items k = f * 8 + w,
+// stepping by 8F, 32 words at a time: lane i loads word i, a warp scan of
+// the words' popcounts gives each word's first position, and for each
+// nonzero word lane b writes the id of slot 32 * word + b, if bit b is
+// set, at that position plus the popcount of the word's lower bits (no
+// step waits on the one before; ids of a word land in neighbouring
+// positions, so the stores coalesce).  An item with no hit, whose words
+// pass 1 did not write, is skipped.  Then block f writes -1 over its slice
+// of [min(n_hits, max_hits), max_hits), 16 bytes a store where aligned.
+// Bound: memory (the counts and the set words in, the (Qc, max_hits) ids
+// out); the scan repeats F times over C counts, from L2.
 
-__device__ __forceinline__ bool inside(const uint32_t* __restrict__ page,
-                                       int s, int d, int cap,
-                                       const uint32_t* lo, const uint32_t* hi) {
-  bool ok = true;
-  for (int i = 0; i < d; ++i) {
-    const uint32_t v = __ldg(page + (size_t)i * cap + s);
-    ok &= (lo[i] <= v) & (v <= hi[i]);
-  }
-  return ok;
-}
+constexpr int kIdsThreads = 256;
+constexpr int kIdsWarps = kIdsThreads / 32;
+constexpr int kIdsMaxBlocks = 32;     // blocks a query, at most
 
-__global__ void __launch_bounds__(kThreads)
-window_match_kernel(const uint32_t* __restrict__ pts,
-                    const uint32_t* __restrict__ rect,
-                    const int* __restrict__ size, uint8_t* __restrict__ out,
-                    int d, int cap) {
-  __shared__ uint32_t lo[kMaxDims], hi[kMaxDims];
-  const int g = blockIdx.x;
-  stage_rect(rect, g, d, lo, hi);
-  const uint32_t* page = pts + (size_t)g * d * cap;
-  const int n = valid_slots(size, g, cap);
-  uint8_t* row = out + (size_t)g * cap;
-  for (int s = threadIdx.x; s < cap; s += kThreads) {
-    row[s] = s < n && inside(page, s, d, cap, lo, hi);
+__global__ void __launch_bounds__(kIdsThreads)
+window_match_ids_kernel(const int* __restrict__ counts,
+                        const uint32_t* __restrict__ bits,
+                        const int* __restrict__ cand,
+                        const long long* __restrict__ n_cand,
+                        int* __restrict__ ids, long long* __restrict__ n_hits,
+                        int C, int W, int cap, int max_hits, int F) {
+  __shared__ long long off[kIdsThreads];
+  __shared__ int cnt[kIdsThreads];
+  __shared__ long long wsum[kIdsWarps];
+  const int q = blockIdx.x / F, f = blockIdx.x % F;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t row0 = (size_t)q * C;
+  // the first 256 counts load beside n_cand, not after it (those past
+  // the live items are read but not used)
+  int next = (int)threadIdx.x < C ? counts[row0 + threadIdx.x] : 0;
+  const long long nc = n_cand[q];
+  const int live = (int)(nc < 0 ? 0 : (nc > C ? C : nc));
+  long long carry = 0;
+  for (int c0 = 0; c0 < live; c0 += kIdsThreads) {
+    const int m = min(kIdsThreads, live - c0);
+    const int v = (int)threadIdx.x < m ? next : 0;
+    cnt[threadIdx.x] = v;
+    if (c0 + kIdsThreads + (int)threadIdx.x < live) {
+      next = counts[row0 + c0 + kIdsThreads + threadIdx.x];
+    }
+    const int incl = warp_inclusive_sum(v, lane);
+    if (lane == 31) wsum[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+      long long t = lane < kIdsWarps ? wsum[lane] : 0;
+      for (int o = 1; o < kIdsWarps; o <<= 1) {
+        const long long u = __shfl_up_sync(kFull, t, o);
+        if (lane >= o) t += u;
+      }
+      if (lane < kIdsWarps) wsum[lane] = t;
+    }
+    __syncthreads();
+    off[threadIdx.x] = carry + (warp ? wsum[warp - 1] : 0) + incl - v;
+    const long long total = wsum[kIdsWarps - 1];
+    __syncthreads();
+    for (int k = f * kIdsWarps + warp; k < m; k += F * kIdsWarps) {
+      long long pos = off[k];
+      if (pos >= max_hits) break;        // later items start further on
+      if (cnt[k] == 0) continue;          // its words were not written
+      const size_t item = row0 + c0 + k;
+      const uint32_t* words = bits + item * W;
+      const int gid0 = cand[item] * cap;
+      for (int w0 = 0; w0 < W && pos < max_hits; w0 += 32) {
+        const uint32_t mine = w0 + lane < W ? words[w0 + lane] : 0u;
+        const int pc = __popc(mine);
+        const int upto = warp_inclusive_sum(pc, lane);
+        const long long first = pos + upto - pc;
+        for (uint32_t nz = __ballot_sync(kFull, mine != 0u); nz;
+             nz &= nz - 1) {
+          const int j = __ffs(nz) - 1;
+          const uint32_t word = __shfl_sync(kFull, mine, j);
+          const long long p =
+              __shfl_sync(kFull, first, j) +
+              __popc(word & ((1u << lane) - 1u));
+          if (((word >> lane) & 1u) && p < max_hits) {
+            ids[(size_t)q * max_hits + p] = gid0 + (w0 + j) * 32 + lane;
+          }
+        }
+        pos += __shfl_sync(kFull, upto, 31);
+      }
+    }
+    carry += total;
+    __syncthreads();    // off and wsum are rewritten by the next 256
   }
+  if (f == 0 && threadIdx.x == 0) n_hits[q] = carry;
+  // -1 over this block's slice of [min(n_hits, max_hits), max_hits)
+  const long long per = ((long long)max_hits + F - 1) / F;
+  const long long a0 = max(carry < max_hits ? carry : (long long)max_hits,
+                           (long long)f * per);
+  const long long a1 = min((long long)max_hits, (long long)(f + 1) * per);
+  if (a0 >= a1) return;
+  int* row = ids + (size_t)q * max_hits;
+  int* p = row + a0;
+  int* e = row + a1;
+  const uintptr_t up = (reinterpret_cast<uintptr_t>(p) + 15) & ~(uintptr_t)15;
+  const uintptr_t ue = reinterpret_cast<uintptr_t>(e);
+  int* pa = reinterpret_cast<int*>(up < ue ? up : ue);
+  const uintptr_t down = ue & ~(uintptr_t)15;
+  int* ea = down > reinterpret_cast<uintptr_t>(pa) ? reinterpret_cast<int*>(down)
+                                                   : pa;
+  for (int* x = p + threadIdx.x; x < pa; x += kIdsThreads) *x = -1;
+  int4* v4 = reinterpret_cast<int4*>(pa);
+  const int n4 = (int)((ea - pa) / 4);
+  for (int i = threadIdx.x; i < n4; i += kIdsThreads) {
+    v4[i] = make_int4(-1, -1, -1, -1);
+  }
+  for (int* x = ea + threadIdx.x; x < e; x += kIdsThreads) *x = -1;
 }
 
 }  // namespace
 
-// Tile width T (slots a stage holds, a multiple of 4) and the dynamic
-// shared memory of a window_filter block at d and cap.
-static void filter_tiles(int d, int cap, int* T, size_t* smem) {
-  int t = (kStageBytes / (4 * d)) & ~3;
-  t = t < 4 ? 4 : t;
+// Tile width T (slots a stage holds: a multiple of 32 when a page spans
+// several tiles, else the page rounded up to 4) and the dynamic shared
+// memory of a ring block at d and cap.
+static void ring_tiles(int d, int cap, int* T, size_t* smem) {
+  int t = (kStageBytes / (4 * d)) & ~31;
+  t = t < 32 ? 32 : t;
   const int cap4 = (cap + 3) & ~3;
   *T = t < cap4 ? t : cap4;
   *smem = kTileOffset + (size_t)kStages * d * (*T + 4) * 4;
 }
 
-extern "C" int window_filter_launch(const void* points, const void* page_size,
-                                    const void* queries, const void* cand,
-                                    const void* n_cand, void* out, int P,
-                                    int Qc, int C, int d, int cap,
-                                    void* stream) {
-  if (d < 1 || d > kMaxDims || P < 0 || Qc < 0 || C < 0 || cap < 1 ||
-      (long long)Qc * C > 0x7fffffffLL) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const cudaStream_t s = (cudaStream_t)stream;
-  const bool store = C == 1 && n_cand == nullptr;
-  if (!store && Qc > 0) {
-    const cudaError_t e = cudaMemsetAsync(out, 0, (size_t)Qc * 4, s);
-    if (e != cudaSuccess) return (int)e;
-  }
-  if ((long long)Qc * C == 0) return (int)cudaSuccess;
+static int ring_launch(Args a, int d, int mode, cudaStream_t s) {
   int T;
   size_t smem;
-  filter_tiles(d, cap, &T, &smem);
-  const FilterKernel fn = filter_kernel(d);
+  ring_tiles(d, a.cap, &T, &smem);
+  a.T = T;
+  a.RS = T + 4;
+  a.W = (a.cap + 31) / 32;
+  const RingKernel fn = ring_kernel(d, mode);
   cudaError_t e;
   if (smem > 48 * 1024) {
     e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -465,34 +592,97 @@ extern "C" int window_filter_launch(const void* points, const void* page_size,
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn,
-                                                    kFilterThreads, smem);
+                                                    kRingThreads, smem);
   if (e != cudaSuccess) return (int)e;
-  const long long items = (long long)Qc * C;
+  const long long items = (long long)a.Qc * a.C;
   const long long fit = (long long)(per_sm > 0 ? per_sm : 1) * sms;
   const int grid = (int)(items < fit ? items : fit);
-  Args a{(const uint32_t*)points, (const int*)page_size,
-         (const uint32_t*)queries, (const int*)cand,
-         (const long long*)n_cand, (int*)out, P, Qc, C, cap, T, T + 4,
-         store};
-  fn<<<grid, kFilterThreads, smem, s>>>(a, d);
+  fn<<<grid, kRingThreads, smem, s>>>(a, d);
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory (bytes) and tile width of a window_filter block.
+static bool bad_shape(int P, int Qc, int C, int d, int cap) {
+  return d < 1 || d > kMaxDims || P < 0 || Qc < 0 || C < 0 || cap < 1 ||
+         (long long)Qc * C > 0x7fffffffLL;
+}
+
+extern "C" int window_filter_launch(const void* points, const void* page_size,
+                                    const void* queries, const void* cand,
+                                    const void* n_cand, void* out, int P,
+                                    int Qc, int C, int d, int cap,
+                                    void* stream) {
+  if (bad_shape(P, Qc, C, d, cap)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const bool store = C == 1 && n_cand == nullptr;
+  if (!store && Qc > 0) {
+    const cudaError_t e = cudaMemsetAsync(out, 0, (size_t)Qc * 4, s);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if ((long long)Qc * C == 0) return (int)cudaSuccess;
+  Args a{(const uint32_t*)points, (const int*)page_size,
+         (const uint32_t*)queries, (const int*)cand,
+         (const long long*)n_cand, (int*)out, nullptr, nullptr, P, Qc, C,
+         cap, 0, 0, 0, store};
+  return ring_launch(a, d, kCount, s);
+}
+
+// Dynamic shared memory (bytes) of a ring block (window_filter and
+// window_match) at d and cap.
 extern "C" int window_filter_smem_bytes(int d, int cap) {
   if (d < 1 || d > kMaxDims || cap < 1) return -1;
   int T;
   size_t smem;
-  filter_tiles(d, cap, &T, &smem);
+  ring_tiles(d, cap, &T, &smem);
   return (int)smem;
 }
 
-extern "C" int window_match_launch(const void* pts, const void* rect,
-                                   const void* size, void* out, int G, int d,
-                                   int cap, void* stream) {
-  if (d < 1 || d > kMaxDims) return (int)cudaErrorInvalidValue;
-  window_match_kernel<<<G, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)pts, (const uint32_t*)rect, (const int*)size,
-      (uint8_t*)out, d, cap);
+// window_match's ring pass.  With `bits`: each live item's count into
+// `counts` (Qc*C,) and its hit words into `bits` (Qc*C, ceil(cap/32)).
+// Without: the TPU contract (cand and n_cand null), the (Qc*C, cap) byte
+// mask into `mask`.
+extern "C" int window_match_launch(const void* points, const void* page_size,
+                                   const void* queries, const void* cand,
+                                   const void* n_cand, void* counts,
+                                   void* bits, void* mask, int P, int Qc,
+                                   int C, int d, int cap, void* stream) {
+  if (bad_shape(P, Qc, C, d, cap)) return (int)cudaErrorInvalidValue;
+  const bool to_bits = bits != nullptr;
+  if (to_bits ? counts == nullptr
+              : (mask == nullptr || cand != nullptr || n_cand != nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if ((long long)Qc * C == 0) return (int)cudaSuccess;
+  Args a{(const uint32_t*)points, (const int*)page_size,
+         (const uint32_t*)queries, (const int*)cand,
+         (const long long*)n_cand, to_bits ? (int*)counts : nullptr,
+         (uint32_t*)bits, (uint8_t*)mask, P, Qc, C, cap, 0, 0, 0, true};
+  return ring_launch(a, d, to_bits ? kBits : kMask, (cudaStream_t)stream);
+}
+
+// window_match's id pass: `counts` and `bits` from the ring pass, cand
+// (Qc, C), n_cand (Qc,) int64 -> ids (Qc, max_hits) int32, -1 padded, and
+// n_hits (Qc,) int64.
+extern "C" int window_match_ids_launch(const void* counts, const void* bits,
+                                       const void* cand, const void* n_cand,
+                                       void* ids, void* n_hits, int Qc,
+                                       int C, int cap, int max_hits,
+                                       void* stream) {
+  if (Qc < 0 || C < 0 || cap < 1 || max_hits < 0 ||
+      (C > 0 && cand == nullptr) || (Qc > 0 && n_cand == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (Qc == 0) return (int)cudaSuccess;
+  cudaError_t e;
+  int dev = 0, sms = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  int F = (2 * sms + Qc - 1) / Qc;
+  F = F < 1 ? 1 : (F > kIdsMaxBlocks ? kIdsMaxBlocks : F);
+  if ((long long)Qc * F > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  window_match_ids_kernel<<<Qc * F, kIdsThreads, 0, (cudaStream_t)stream>>>(
+      (const int*)counts, (const uint32_t*)bits, (const int*)cand,
+      (const long long*)n_cand, (int*)ids, (long long*)n_hits, C,
+      (cap + 31) / 32, cap, max_hits, F);
   return (int)cudaGetLastError();
 }

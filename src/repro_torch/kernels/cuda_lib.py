@@ -47,8 +47,13 @@ _SIGNATURES = {
                              _INT, _INT, _VP),
     # d, cap -> dynamic shared memory bytes of a window_filter block
     "window_filter_smem_bytes": (_INT, _INT),
-    # pts, rect, size, out, G, d, cap, stream
-    "window_match_launch": (_VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP),
+    # points, page_size, queries, cand, n_cand, counts, bits, mask, P, Qc,
+    # C, d, cap, stream
+    "window_match_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT,
+                            _INT, _INT, _INT, _INT, _VP),
+    # counts, bits, cand, n_cand, ids, n_hits, Qc, C, cap, max_hits, stream
+    "window_match_ids_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT,
+                                _INT, _INT, _VP),
     # x, lut, reg, out, n, d, K, R, M, staged, blocks, stream
     "sfc_encode_launch": (_VP, _VP, _VP, _VP, _I64, _INT, _INT, _INT, _INT,
                           _INT, _INT, _VP),

@@ -5,19 +5,26 @@ plain-torch twin only for CPU tensors; ``backend="torch"`` always uses the
 twin.  There is no fallback from a CUDA tensor to the twin.  On ``meta``
 tensors the kernel route allocates the kernel's outputs and launches
 nothing (a shape-only run); on either device each call is one op to an
-active step counter (`filter_work`, `filter_work_paged`).
+active step counter (`filter_work`, `filter_work_paged`,
+`match_work_paged`).
 
 `window_filter_paged` counts, for each query, the hits in its candidate
 pages read by id from the index's page array; `window_filter` (the TPU
 kernel's contract, pages gathered by the caller) launches the same kernel
 with each page its own query.  Both count under ``"window_filter"``.
+`window_match_paged` writes each query's matching row ids, its candidate
+pages read by id (two launches: the ring kernel's hit words, then the
+ids); `window_match` (the TPU contract's byte mask) launches the ring
+kernel alone with each page its own query.  Both count every launch
+under ``"window_match"``.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import cuda_lib
-from .ref import window_filter_paged_ref, window_filter_ref, window_match_ref
+from .ref import (window_filter_paged_ref, window_filter_ref,
+                  window_match_paged_ref, window_match_ref)
 
 BACKENDS = ("cuda", "torch")
 
@@ -147,9 +154,77 @@ def window_filter_paged(points, page_size, queries, cand, n_cand, *,
     return out
 
 
+def match_work_paged(P: int, Qc: int, C: int, d: int, cap: int,
+                     max_hits: int, n_cand_bytes: int = 8) -> int:
+    """Bytes a paged match call moves, from shapes alone: what
+    `filter_work_paged` reads in (min(Qc * C, P) whole pages with their
+    sizes, the rectangles, ids and live counts), and out the (Qc,
+    max_hits) int32 id buffer and the (Qc,) int64 match counts."""
+    pages = min(Qc * C, P)
+    return (pages * (d * cap * 4 + 4) + Qc * d * 2 * 4 + Qc * C * 4
+            + Qc * n_cand_bytes + Qc * max_hits * 4 + Qc * 8)
+
+
+def window_match_paged(points, page_size, queries, cand, n_cand,
+                       max_hits: int, *, backend: str = "cuda"):
+    """Matching row ids of each query in its candidate pages, read by id.
+
+    Inputs as `window_filter_paged`; max_hits >= 0 -> ids (Qc, max_hits)
+    int32 and n_hits (Qc,) int64.  A match is (c, s) with c <
+    min(n_cand[q], C), s < clamp(page_size[p], 0, cap) for p = cand[q, c],
+    and lo <= points[p, :, s] <= hi in every dimension, compared unsigned;
+    its id is p * cap + s.  ids holds each query's first max_hits matches
+    in (c, s) order, -1 after them; n_hits counts every match, past
+    max_hits too.  Equal bit for bit to gathering the pages
+    (`ref.gather_pages`), `window_match` and the cumsum compaction
+    (`ref.window_match_paged_ref`).  Needs P * cap < 2^31 (int32 ids).
+    Two kernel launches (one when C is 0): the ring kernel stores each
+    live item's hit count and hit words, then one pass turns them into
+    ids.  On the card a live id outside [0, P) stops the kernel, as
+    `window_filter_paged` does."""
+    if max_hits < 0:
+        raise ValueError(f"max_hits must be >= 0; got {max_hits}")
+    if points.dim() == 3 and points.shape[0] * points.shape[2] >= 2**31:
+        raise ValueError(f"row ids need pages*cap < 2^31; got "
+                         f"{points.shape[0]} pages x cap {points.shape[2]}")
+    if _use_ref(points, backend):
+        return window_match_paged_ref(points, page_size, queries, cand,
+                                      n_cand, max_hits)
+    n_cand = n_cand.to(torch.int64)
+    P, d, cap, Qc, C = _check_paged(points, page_size, queries, cand, n_cand)
+    dev = points.device
+    ids = torch.empty((Qc, max_hits), dtype=torch.int32, device=dev)
+    n_hits = torch.empty(Qc, dtype=torch.int64, device=dev)
+    # the ring pass's per-item counts and hit words
+    counts = torch.empty(Qc * C, dtype=torch.int32, device=dev)
+    bits = torch.empty((Qc * C, (cap + 31) // 32), dtype=torch.int32,
+                       device=dev)
+    if Qc and cuda_lib.on_card(points):
+        if C:
+            cuda_lib.launch("window_match_launch", points.data_ptr(),
+                            page_size.data_ptr(), queries.data_ptr(),
+                            cand.data_ptr(), n_cand.data_ptr(),
+                            counts.data_ptr(), bits.data_ptr(), None, P, Qc,
+                            C, d, cap)
+            cuda_lib.LAUNCHES["window_match"] += 1
+        cuda_lib.launch("window_match_ids_launch", counts.data_ptr(),
+                        bits.data_ptr(), cand.data_ptr(), n_cand.data_ptr(),
+                        ids.data_ptr(), n_hits.data_ptr(), Qc, C, cap,
+                        max_hits)
+        cuda_lib.LAUNCHES["window_match"] += 1
+    cuda_lib.count_kernel("window_match", lambda: (
+        0, match_work_paged(P, Qc, C, d, cap, max_hits,
+                            n_cand.element_size()),
+        (tuple(points.shape), tuple(page_size.shape), tuple(queries.shape),
+         tuple(cand.shape), tuple(n_cand.shape), tuple(ids.shape)),
+        (ids, n_hits)))
+    return ids, n_hits
+
+
 def window_match(pts, rect, size, *, backend: str = "cuda"):
     """Index-emitting variant of `window_filter`: the (G, cap) bool
-    membership mask of valid points inside their rectangle."""
+    membership mask of valid points inside their rectangle.  On the card:
+    the ring kernel with each page its own query, writing bytes."""
     if _use_ref(pts, backend):
         return window_match_ref(pts, rect, size)
     G, d, cap = _check(pts, rect, size)
@@ -157,8 +232,8 @@ def window_match(pts, rect, size, *, backend: str = "cuda"):
     if G:
         if cuda_lib.on_card(pts):
             cuda_lib.launch("window_match_launch", pts.data_ptr(),
-                            rect.data_ptr(), size.data_ptr(), out.data_ptr(),
-                            G, d, cap)
+                            size.data_ptr(), rect.data_ptr(), None, None,
+                            None, None, out.data_ptr(), G, G, 1, d, cap)
             cuda_lib.LAUNCHES["window_match"] += 1
         _count("window_match", pts, rect, size, out)
     return out

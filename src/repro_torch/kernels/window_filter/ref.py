@@ -47,3 +47,42 @@ def window_filter_paged_ref(points, page_size, queries, cand, n_cand):
     cnt = window_filter_ref(*gather_pages(points, page_size, queries, cand,
                                           n_cand))
     return cnt.reshape(Qc, C).sum(dim=1).to(torch.int32)
+
+
+def compact_rows(mask: torch.Tensor, values: torch.Tensor, width: int,
+                 fill: int):
+    """Top-`width` compaction of each row of `mask` (Qc, N): returns the
+    (Qc, width) int32 buffer of `values` at the first `width` set
+    positions (`fill` elsewhere) and the (Qc,) int64 number set.  Writes
+    past `width` go to a spare row that is sliced off (the reference's
+    scatter with ``mode="drop"``), never to a real row."""
+    Qc, N = mask.shape
+    pos = torch.cumsum(mask, dim=1) - 1           # (Qc, N) int64
+    n_set = pos[:, -1] + 1 if N else torch.zeros(Qc, dtype=torch.int64,
+                                                 device=mask.device)
+    ok = mask & (pos < width)
+    rows = torch.where(ok, torch.arange(Qc, device=mask.device)[:, None], Qc)
+    cols = torch.where(ok, pos, 0)
+    out = torch.full((Qc + 1, width), fill, dtype=torch.int32,
+                     device=mask.device)
+    if width == 0:
+        return out[:Qc], n_set
+    out.index_put_((rows.reshape(-1), cols.reshape(-1)),
+                   values.expand(Qc, N).reshape(-1).to(torch.int32))
+    return out[:Qc], n_set
+
+
+def window_match_paged_ref(points, page_size, queries, cand, n_cand,
+                           max_hits: int):
+    """Twin of the paged match: `gather_pages`, `window_match_ref`, and
+    the compaction of each query's matches (candidate c, slot s in order)
+    as row ids cand[q, c] * cap + s -> ids (Qc, max_hits) int32, -1
+    padded, and n_hits (Qc,) int64, every match counted."""
+    Qc, C = cand.shape
+    cap = points.shape[2]
+    mask = window_match_ref(*gather_pages(points, page_size, queries, cand,
+                                          n_cand))
+    gid = (cand[:, :, None] * cap
+           + torch.arange(cap, dtype=torch.int32, device=cand.device))
+    return compact_rows(mask.reshape(Qc, C * cap), gid.reshape(Qc, C * cap),
+                        max_hits, -1)

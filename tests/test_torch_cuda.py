@@ -42,9 +42,11 @@ from repro_torch.kernels.sfc_encode.ref import (lut_tables,
                                                 sfc_encode_ref)
 from repro_torch.kernels.window_filter.ops import (window_filter,
                                                    window_filter_paged,
-                                                   window_match)
+                                                   window_match,
+                                                   window_match_paged)
 from repro_torch.kernels.window_filter.ref import (window_filter_paged_ref,
                                                    window_filter_ref,
+                                                   window_match_paged_ref,
                                                    window_match_ref)
 from repro_torch.models.transformer import init_decode_state, init_model
 from repro_torch.train.steps import make_decode_step, make_prefill_step
@@ -178,6 +180,149 @@ except RuntimeError as e:
                               text=True, timeout=600, env=env)
         assert proc.returncode == 0, proc.stderr[-4000:]
         assert "RAISED" in proc.stdout, proc.stdout
+
+
+def _paged_card_inputs(rng, Qc, C, d, cap, P, shift, dev):
+    """Seeded paged inputs on the host and on the card: sizes -1..cap + 2,
+    n_cand 0, at and above C and random, query 0's ids all one page and
+    query 1's the same as query 0's; `shift` starts the points one word
+    into their buffer, so no row is 16-byte aligned."""
+    flat = _i32(rng.integers(0, 2**32, size=P * d * cap + shift,
+                             dtype=np.uint64))
+    points = torch.from_numpy(flat)[shift:].view(P, d, cap)
+    size = torch.from_numpy(rng.integers(-1, cap + 3, size=P)
+                            .astype(np.int32))
+    span = int(0.5 ** (1 / d) * 2**32)
+    lo = rng.integers(0, 2**32 - span, size=(Qc, d), dtype=np.uint64)
+    queries = torch.from_numpy(_i32(np.stack([lo, lo + span], axis=-1)))
+    cand = rng.integers(0, P, size=(Qc, C))
+    cand[0, 1:] = cand[0, 0]
+    cand[1] = cand[0]
+    cand = torch.from_numpy(cand.astype(np.int32))
+    n_cand = torch.from_numpy(rng.integers(0, C + 4, size=Qc))
+    n_cand[:3] = torch.tensor([C, 0, C + 5])
+    cpu = (points, size, queries, cand, n_cand)
+    on_card = tuple(t.to(dev) for t in cpu)
+    if shift:
+        flat_dev = torch.from_numpy(flat).to(dev)
+        on_card = (flat_dev[shift:].view(P, d, cap),) + on_card[1:]
+        assert on_card[0].data_ptr() % 16 == 4
+    return cpu, on_card
+
+
+@pytest.mark.parametrize("Qc,C,d,cap,P,shift,max_hits", [
+    (16, 256, 2, 1024, 2048, 0, 65536),  # the Range path's chunk
+    (16, 256, 2, 1024, 2048, 0, 4),      # truncated at max_hits
+    (37, 64, 3, 682, 300, 1, 1000),      # rows 4 bytes off 16
+    (5, 6, 4, 1, 9, 0, 1),               # cap 1, max_hits 1
+    (8, 16, 32, 1024, 64, 0, 4097),      # d 32: tiles of 128 slots
+    (9, 7, 5, 100, 20, 1, 3),            # d 5: the general body
+    (3, 300, 2, 64, 50, 0, 99),          # C above 256: two scan rounds
+])
+def test_paged_window_match_matches_twin(cuda_device, Qc, C, d, cap, P,
+                                         shift, max_hits):
+    """`window_match_paged` against its twin, ids and n_hits bit for bit,
+    two launches a call; an int32 n_cand gives the same."""
+    rng = np.random.default_rng(Qc * C + d + max_hits)
+    cpu, dev = _paged_card_inputs(rng, Qc, C, d, cap, P, shift, cuda_device)
+    want = window_match_paged_ref(*cpu, max_hits)
+    before = cuda_lib.LAUNCHES["window_match"]
+    got = window_match_paged(*dev, max_hits)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["window_match"] == before + 2
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and torch.equal(g.cpu(), w)
+    assert want[1][1] == 0 and (want[1].sum() > 0 or cap == 1)
+    got = window_match_paged(*dev[:4], dev[4].to(torch.int32), max_hits)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    # no candidates: the id pass alone
+    got = window_match_paged(*dev[:3], dev[3][:, :0], dev[4], max_hits)
+    assert cuda_lib.LAUNCHES["window_match"] == before + 5
+    assert (got[0] == -1).all() and (got[1] == 0).all()
+
+
+def test_paged_window_match_stops_on_a_live_id_outside_the_pages(
+        cuda_device):
+    """As the paged filter: an id past n_cand is never read; a live id of
+    P or -1 stops the kernel, and the error reaches the caller at the next
+    sync.  The fault leaves the CUDA context unusable, so it runs in a
+    child process."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = r'''
+import sys
+import torch
+from repro_torch.kernels.window_filter.ops import window_match_paged
+from repro_torch.kernels.window_filter.ref import window_match_paged_ref
+g = torch.Generator().manual_seed(5)
+P, d, cap, Qc, C = 40, 2, 1024, 4, 8
+points = torch.randint(-2**31, 2**31, (P, d, cap), generator=g,
+                       dtype=torch.int64).to(torch.int32)
+size = torch.randint(0, cap + 1, (P,), generator=g, dtype=torch.int32)
+queries = torch.tensor([[[0, -1]] * d] * Qc, dtype=torch.int32)
+cand = torch.randint(0, P, (Qc, C), generator=g, dtype=torch.int32)
+n_cand = torch.tensor([C, 3, 0, C + 2])
+want = window_match_paged_ref(points, size, queries, cand, n_cand, 9000)
+dead = cand.clone()
+dead[1, 3:] = P
+dead[2, :] = -1
+dev = lambda *ts: [t.cuda() for t in ts]
+got = window_match_paged(*dev(points, size, queries, dead, n_cand), 9000)
+assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+assert int(want[1][0]) == int(size[cand[0].long()].sum())
+bad = cand.clone()
+bad[int(sys.argv[1]), 1] = int(sys.argv[2])
+try:
+    window_match_paged(*dev(points, size, queries, bad, n_cand), 9000)
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("RAISED", str(e).splitlines()[0])
+'''
+    root = Path(__file__).resolve().parents[1]
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    for q, page in ((0, 40), (3, -1)):
+        proc = subprocess.run([sys.executable, "-c", code, str(q),
+                               str(page)], cwd=root, capture_output=True,
+                              text=True, timeout=600, env=env)
+        assert proc.returncode == 0, proc.stderr[-4000:]
+        assert "RAISED" in proc.stdout, proc.stdout
+
+
+def test_range_on_the_cuda_engine_launches_window_match_twice_a_chunk(
+        cuda_device, monkeypatch):
+    """Range through `Database`'s `cuda` engine: each chunk calls
+    `window_match_paged` once, which launches twice (hit words, ids), and
+    the rows equal the `torch` engine's."""
+    from repro_torch import api
+
+    data = make_dataset("osm", 20000, seed=3)
+    Ls, Us = make_workload(data, 40, seed=4, width_scale=0.05)
+    db = api.Database.fit(data, K=32, learn=False,
+                          cfg=IndexConfig(page_bytes=2048))
+    knobs = dict(q_chunk=8, max_cand=64, max_hits=4096)
+    db.engine("torch", api.EngineConfig(**knobs))
+    db.engine("cuda", api.EngineConfig(**knobs))
+    calls = []
+    paged = tsv.window_match_paged
+
+    def counted(*a, **kw):
+        calls.append(a[3].shape)
+        return paged(*a, **kw)
+
+    monkeypatch.setattr(tsv, "window_match_paged", counted)
+    cuda_lib.reset_launches()
+    got = db.query(api.Range(Ls, Us), engine="cuda")
+    launches = dict(cuda_lib.LAUNCHES)
+    assert calls and all(c[0] == 8 for c in calls)
+    assert launches["window_match"] == 2 * len(calls)
+    want = db.query(api.Range(Ls, Us), engine="torch")
+    for f in ("rows", "offsets"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    assert got.exact and got.engine == "cuda" and got.cpu_fallbacks == 0
 
 
 @pytest.mark.parametrize("d,family,depth", [(2, "global", 1),

@@ -132,21 +132,36 @@ def test_count_path_matches_reference(max_cand):
 
 
 def test_count_reads_pages_by_id_and_range_still_gathers(monkeypatch):
-    """Count no longer gathers the candidate pages (`_gather`); Range,
-    which emits row ids through `window_match`, still does."""
+    """Neither Count nor Range gathers the candidate pages any more (the
+    name predates Range's paged match): on the kernel route, run on meta
+    tensors (shapes alone, nothing launched), no op indexes the (P, d,
+    cap) page array, the twins' `gather_pages` is never called, and each
+    chunk is one `window_filter` call (Count) or one `window_match` call
+    (Range), the page array read by id."""
+    from repro_torch.dist.hlo_analysis import StepCounter
+    from repro_torch.kernels.window_filter import ref as wf_ref
     _, (Ls, Us), _, b = _indexes("global", n=3000, seed=13)
     rects = tsv.pack_query_rects(Ls, Us)
-    arrays = tsv.build_serving_arrays(b, device="cpu")
+    arrays = tsv.build_serving_arrays(b, device="cpu").map(
+        lambda t: torch.empty_like(t, device="meta"))
+    queries = torch.from_numpy(rects).to("meta")
     calls = []
-    gather = tsv._gather
+    gather = wf_ref.gather_pages
 
     def counted(*args):
-        calls.append(args[2].shape)
+        calls.append(args[3].shape)
         return gather(*args)
 
-    monkeypatch.setattr(tsv, "_gather", counted)
-    kw = dict(max_cand=64, q_chunk=8, backend="torch")
-    tsv.make_query_fn(b.curve, **kw)(arrays, rects)
-    assert calls == []
-    tsv.make_range_fn(b.curve, max_hits=4096, **kw)(arrays, rects)
-    assert len(calls) == len(rects) // 8
+    monkeypatch.setattr(wf_ref, "gather_pages", counted)
+    kw = dict(max_cand=64, q_chunk=8, backend="cuda")
+    page_array = list(arrays.points.shape)
+    chunks = len(rects) // 8
+    for fn, key in ((tsv.make_query_fn(b.curve, **kw), "window_filter"),
+                    (tsv.make_range_fn(b.curve, max_hits=4096, **kw),
+                     "window_match")):
+        with StepCounter(op_log=True) as c:
+            fn(arrays, queries)
+        assert calls == []
+        assert c.kernel_calls[key] == chunks
+        reads = [r for r in c.op_log() if page_array in r["shapes"]]
+        assert {r["op"] for r in reads} == {f"repro_torch.{key}"}, reads
