@@ -314,8 +314,10 @@ class Database:
         `RangeResult`, `PointResult`, `KnnResult`) with the executed
         `QueryPlan` (per-stage accounting filled) attached as ``.plan``.
         """
-        plan = self.planner.plan(q, U, engine=engine)
-        return self.executor.execute(plan, q, U)
+        with obs.span("database.query") as sp:
+            plan = self.planner.plan(q, U, engine=engine)
+            sp.label(kind=plan.kind, engine=plan.engine)
+            return self.executor.execute(plan, q, U)
 
     def session(self, *, engine: str = None, tick: int = None) -> Session:
         """A micro-batching `Session` over this database: interleaved

@@ -328,7 +328,9 @@ class TorchEngine(BaseEngine):
         the engine's device.  Qp is the batch's *shape bucket* (q_chunk *
         2^j), so varying traffic sizes hit a bounded set of shapes."""
         Qp = bucket_pow2(len(Ls), self.cfg.q_chunk)
-        return torch.from_numpy(pack_query_rects(Ls, Us, Qp)).to(self.device)
+        with obs.span("serve.upload", engine=self.name):
+            return torch.from_numpy(pack_query_rects(Ls, Us, Qp)).to(
+                self.device)
 
     def run(self, Ls, Us, max_cand=None):
         if len(Ls) == 0:      # nothing to pad or launch (off-bucket shape)
@@ -340,8 +342,9 @@ class TorchEngine(BaseEngine):
         q = self._device_queries(Ls, Us)
         fn = self.db.executor.count_fn(self, max_cand or self.cfg.max_cand)
         counts, over = fn(self._arrays, q)
-        return (counts.cpu().numpy()[:Q].astype(np.int64),
-                over.cpu().numpy()[:Q].astype(np.int32), None)
+        with obs.span("serve.readback", engine=self.name, kind="count"):
+            return (counts.cpu().numpy()[:Q].astype(np.int64),
+                    over.cpu().numpy()[:Q].astype(np.int32), None)
 
     def run_range(self, Ls, Us, max_cand=None, max_hits=None):
         if len(Ls) == 0:      # nothing to pad or launch (off-bucket shape)
@@ -362,17 +365,19 @@ class TorchEngine(BaseEngine):
             self, max_cand or self.cfg.max_cand,
             max_hits or self.cfg.max_hits)
         ids, n_hits, co, ho = fn(self._arrays, q)
-        ids = ids.cpu().numpy()[:Q]
-        co = co.cpu().numpy()[:Q].astype(np.int32)
-        ho = ho.cpu().numpy()[:Q].astype(np.int32)
+        with obs.span("serve.readback", engine=self.name, kind="range"):
+            ids = ids.cpu().numpy()[:Q]
+            co = co.cpu().numpy()[:Q].astype(np.int32)
+            ho = ho.cpu().numpy()[:Q].astype(np.int32)
         # resolve global row ids (page * cap + slot) against the host copy
-        pts_u32 = np.ascontiguousarray(self._host.points).view(np.uint32)
-        cap = pts_u32.shape[2]
-        rows_list = []
-        for i in range(Q):
-            gid = ids[i][ids[i] >= 0].astype(np.int64)
-            rows_list.append(
-                pts_u32[gid // cap, :, gid % cap].astype(np.uint64))
+        with obs.span("serve.resolve_rows", engine=self.name):
+            pts_u32 = np.ascontiguousarray(self._host.points).view(np.uint32)
+            cap = pts_u32.shape[2]
+            rows_list = []
+            for i in range(Q):
+                gid = ids[i][ids[i] >= 0].astype(np.int64)
+                rows_list.append(
+                    pts_u32[gid // cap, :, gid % cap].astype(np.uint64))
         return rows_list, co, ho, None
 
 

@@ -140,7 +140,8 @@ class Executor:
                 with obs.span("executor.device_call", engine=_eng,
                               kind=_key[1], stage=stage):
                     out = _inner(arrays, queries)
-                    _fence(out)
+                    with obs.span("executor.device_wait", engine=_eng):
+                        _fence(out)
                 return out
 
             self._fns[key] = fn
@@ -224,13 +225,15 @@ class Executor:
                     if mc == last:
                         continue
                     last = mc
-                    idx = np.nonzero(over)[0]
-                    c2, o2, _ = eng.run(Ls[idx], Us[idx], max_cand=mc)
-                    acct.device_calls += 1
-                    counts = counts.copy()
-                    counts[idx] = c2
-                    over = np.zeros_like(over)
-                    over[idx] = o2
+                    with obs.span("executor.escalate", kind=plan.kind,
+                                  engine=eng.name):
+                        idx = np.nonzero(over)[0]
+                        c2, o2, _ = eng.run(Ls[idx], Us[idx], max_cand=mc)
+                        acct.device_calls += 1
+                        counts = counts.copy()
+                        counts[idx] = c2
+                        over = np.zeros_like(over)
+                        over[idx] = o2
                     rounds += 1
             finally:
                 self._stage = "first"
@@ -292,17 +295,19 @@ class Executor:
                     if (mc, mh) == last:
                         continue
                     last = (mc, mh)
-                    idx = np.nonzero(over)[0]
-                    rl2, co2, ho2, _ = eng.run_range(
-                        Ls[idx], Us[idx], max_cand=mc, max_hits=mh)
-                    acct.device_calls += 1
-                    for j, i in enumerate(idx):
-                        rows_list[i] = rl2[j]
-                    co = np.zeros_like(co)
-                    ho = np.zeros_like(ho)
-                    co[idx] = co2
-                    ho[idx] = ho2
-                    over = ((co > 0) | (ho > 0)).astype(np.int32)
+                    with obs.span("executor.escalate", kind=plan.kind,
+                                  engine=eng.name):
+                        idx = np.nonzero(over)[0]
+                        rl2, co2, ho2, _ = eng.run_range(
+                            Ls[idx], Us[idx], max_cand=mc, max_hits=mh)
+                        acct.device_calls += 1
+                        for j, i in enumerate(idx):
+                            rows_list[i] = rl2[j]
+                        co = np.zeros_like(co)
+                        ho = np.zeros_like(ho)
+                        co[idx] = co2
+                        ho[idx] = ho2
+                        over = ((co > 0) | (ho > 0)).astype(np.int32)
                     rounds += 1
             finally:
                 self._stage = "first"
@@ -327,8 +332,10 @@ class Executor:
         else:
             rows_list, first_over, over, rounds, fallbacks, stats = \
                 self._range_exact(plan, eng, Ls, Us)
-        rows_list = [lex_sorted_rows(r) for r in rows_list]  # canonical order
-        rows, offsets = _concat_rows(rows_list, self.db.d)
+        with obs.span("executor.order_rows", engine=name):
+            # canonical order
+            rows_list = [lex_sorted_rows(r) for r in rows_list]
+            rows, offsets = _concat_rows(rows_list, self.db.d)
         if stats is None:
             stats = QueryStats(result=int(offsets[-1]), subqueries=len(Ls))
         return RangeResult(rows=rows, offsets=offsets, engine=name,

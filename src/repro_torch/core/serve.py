@@ -36,6 +36,7 @@ import math
 import numpy as np
 import torch
 
+from .. import obs
 from ..dist.sharding import P
 from ..kernels.window_filter.ops import (window_filter_paged,
                                         window_match_paged)
@@ -211,9 +212,10 @@ def _chunks(arrays: ServingArrays, queries, curve, k_maxsplit: int,
     if Q % q_chunk:
         raise ValueError(f"batch size {Q} is not a multiple of q_chunk="
                          f"{q_chunk}; pad with pack_query_rects")
-    rects, valid = recursive_split_torch(queries, curve, k_maxsplit,
-                                         backend=backend)
-    zlo, zhi = zranges_torch(rects, curve, backend=backend)
+    with obs.span("serve.split", backend=backend):
+        rects, valid = recursive_split_torch(queries, curve, k_maxsplit,
+                                             backend=backend)
+        zlo, zhi = zranges_torch(rects, curve, backend=backend)
     return list(zip(*(t.split(q_chunk) for t in (queries, valid, zlo, zhi))))
 
 
@@ -245,13 +247,15 @@ def make_query_fn(curve, *, k_maxsplit: int = 4, max_cand: int = 64,
     curve = as_curve(curve)
 
     def _chunk(arrays: ServingArrays, queries, *split):
-        base, cand, n_cand = _count_candidates(arrays, queries, *split,
-                                               max_cand=max_cand)
+        with obs.span("serve.prune", kind="count"):
+            base, cand, n_cand = _count_candidates(arrays, queries, *split,
+                                                   max_cand=max_cand)
         overflow = n_cand > max_cand
         # ---- filter the candidate pages, read by id ----------------------
-        cnt = window_filter_paged(arrays.points, arrays.page_size,
-                                  queries.contiguous(), cand, n_cand,
-                                  backend=backend)
+        with obs.span("serve.kernel", kind="count"):
+            cnt = window_filter_paged(arrays.points, arrays.page_size,
+                                      queries.contiguous(), cand, n_cand,
+                                      backend=backend)
         counts = base + cnt
         return counts.to(torch.int32), overflow.to(torch.int32)
 
@@ -290,15 +294,17 @@ def make_range_fn(curve, *, k_maxsplit: int = 4, max_cand: int = 64,
     curve = as_curve(curve)
 
     def _chunk(arrays: ServingArrays, queries, *split):
-        live, _ = _live_pages(arrays, queries, *split)
-        # ---- compact: top-C candidate pages ------------------------------
-        pidx = torch.arange(live.shape[1], device=live.device)[None]
-        cand, n_cand = compact_rows(live, pidx, max_cand, 0)
+        with obs.span("serve.prune", kind="range"):
+            live, _ = _live_pages(arrays, queries, *split)
+            # ---- compact: top-C candidate pages --------------------------
+            pidx = torch.arange(live.shape[1], device=live.device)[None]
+            cand, n_cand = compact_rows(live, pidx, max_cand, 0)
         cand_over = n_cand > max_cand
         # ---- match the candidate pages, read by id, into the id buffer ---
-        ids, n_hits = window_match_paged(arrays.points, arrays.page_size,
-                                         queries.contiguous(), cand, n_cand,
-                                         max_hits, backend=backend)
+        with obs.span("serve.kernel", kind="range"):
+            ids, n_hits = window_match_paged(
+                arrays.points, arrays.page_size, queries.contiguous(), cand,
+                n_cand, max_hits, backend=backend)
         hit_over = n_hits > max_hits
         return (ids, n_hits.to(torch.int32), cand_over.to(torch.int32),
                 hit_over.to(torch.int32))

@@ -11,6 +11,10 @@ exporters: a Chrome/Perfetto trace-event JSON writer and a flat snapshot
 manager, `observe()`/`inc()` return after one flag check, and nothing
 allocates.  Metrics are best-effort measurements — they never change
 query results (the exactness tests run with instrumentation on).
+While enabled, the garbage collector's pauses are recorded as
+``python.gc`` spans (a ``gc.callbacks`` hook that `disable()` removes),
+and a recording `torch.profiler` sees every span as a ``record_function``
+range of the same name.
 
 Quickstart::
 
@@ -29,10 +33,10 @@ The clock is injectable for deterministic tests
 """
 from __future__ import annotations
 
+import gc
 import time
 
-from .export import (bench_envelope, export_trace, prometheus_text,
-                     snapshot, trace_events, validate_quantiles)
+from .export import export_trace, prometheus_text, snapshot, trace_events
 from .log import configure as configure_logging
 from .log import get_logger
 from .metrics import (Counter, Gauge, Histogram, Registry,
@@ -43,8 +47,7 @@ __all__ = [
     "enable", "disable", "enabled", "reset", "clock_ns", "span",
     "counter", "gauge", "histogram", "inc", "observe", "set_gauge",
     "registry", "tracer", "snapshot", "export_trace", "trace_events",
-    "prometheus_text", "bench_envelope", "validate_quantiles",
-    "get_logger", "configure_logging",
+    "prometheus_text", "get_logger", "configure_logging",
     "Counter", "Gauge", "Histogram", "Registry", "Span", "Tracer",
     "DEFAULT_BUCKETS_NS",
 ]
@@ -69,6 +72,8 @@ def enable(clock=None) -> None:
     if clock is not None:
         _clock = clock
     _enabled = True
+    if tracer.gc_callback not in gc.callbacks:
+        gc.callbacks.append(tracer.gc_callback)
 
 
 def disable() -> None:
@@ -76,6 +81,8 @@ def disable() -> None:
     global _enabled, _clock
     _enabled = False
     _clock = time.perf_counter_ns
+    if tracer.gc_callback in gc.callbacks:
+        gc.callbacks.remove(tracer.gc_callback)
 
 
 def enabled() -> bool:

@@ -1,5 +1,5 @@
-"""Exporters: Chrome/Perfetto trace-event JSON, Prometheus text, JSON
-snapshots, and the common benchmark-report envelope.
+"""Exporters: Chrome/Perfetto trace-event JSON, Prometheus text and JSON
+snapshots.
 
 `export_trace` writes the Chrome trace-event format (the ``traceEvents``
 list of balanced ``"B"``/``"E"`` duration events) that both
@@ -17,7 +17,6 @@ current state, nothing runs in the background.
 from __future__ import annotations
 
 import json
-import math
 
 
 def _global():
@@ -106,28 +105,3 @@ def prometheus_text(registry=None) -> str:
         lines.append(f"{pname}_sum{_prom_labels(m.labels)} {m.sum}")
         lines.append(f"{pname}_count{_prom_labels(m.labels)} {m.count}")
     return "\n".join(lines) + ("\n" if lines else "")
-
-
-def bench_envelope() -> dict:
-    """The common header every benchmark report carries, so results
-    across PRs are machine-comparable: same schema, known host, known
-    torch and CUDA (`torch.version.cuda`; None on a CPU-only build)."""
-    import platform
-
-    import torch
-    return {"schema": 1, "host": platform.node(),
-            "platform": platform.platform(),
-            "python": platform.python_version(),
-            "torch_version": torch.__version__,
-            "cuda_version": torch.version.cuda}
-
-
-def validate_quantiles(hist_snapshot: dict) -> None:
-    """Assert p50 <= p95 <= p99 on one histogram snapshot dict (NaNs and
-    missing quantiles fail loudly)."""
-    qs = [hist_snapshot.get(k) for k in ("p50", "p95", "p99")]
-    if any(q is None or (isinstance(q, float) and math.isnan(q))
-           for q in qs):
-        raise AssertionError(f"missing quantiles in {hist_snapshot}")
-    if not qs[0] <= qs[1] <= qs[2]:
-        raise AssertionError(f"non-monotone quantiles: {qs}")

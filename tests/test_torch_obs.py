@@ -8,16 +8,23 @@ calls under the same fake clock must give equal snapshots, traces and
 Prometheus text; instrumented queries run the reference's `xla` engine
 and the port's `torch` engine on the CPU (``device="cpu"``) on the same
 seeded data, and every served array must be equal (integers and exact
-distances: tolerance 0).  Two tests are new: obs on and obs off give
-identical `learn_sfc` and served results, and `bench_envelope` names torch
-and CUDA, not JAX.
+distances: tolerance 0).  New here: obs on and obs off give identical
+`learn_sfc` and served results; the port's stage spans along Count's and
+Range's path (each nested where it runs, once a chunk or once a call);
+with obs off, no span and no profiler range; with obs on, every span
+mirrored as a `record_function` range and each collector pause a
+``python.gc`` span.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
+import gc
 import io
 import json
 import logging
+import sys
 import threading
 
 import numpy as np
@@ -32,11 +39,34 @@ from repro.data.workload import make_workload
 from repro_torch import api as tapi
 from repro_torch import obs
 from repro_torch.core.index import IndexConfig as TConfig
+from repro_torch.core.serve import bucket_pow2
 from repro_torch.core.smbo import learn_sfc
 from repro_torch.obs.metrics import Histogram, Registry
 from repro_torch.obs.trace import NULL_SPAN, Tracer
 
 FIELDS = ("counts", "rows", "offsets", "found", "neighbors", "dists")
+
+# the port's spans along Count's and Range's path, inside one call, with
+# the span each opens under; the reference has none of them
+STAGE_PARENTS = {
+    "database.query": (None,),
+    "planner.plan": ("database.query",),
+    "executor.execute": ("database.query",),
+    "executor.escalate": ("executor.execute",),
+    "executor.device_call": ("executor.execute", "executor.escalate"),
+    "serve.upload": ("executor.execute", "executor.escalate"),
+    "serve.readback": ("executor.execute", "executor.escalate"),
+    "serve.resolve_rows": ("executor.execute", "executor.escalate"),
+    "serve.split": ("executor.device_call",),
+    "serve.prune": ("executor.device_call",),
+    "serve.kernel": ("executor.device_call",),
+    "executor.device_wait": ("executor.device_call",),
+    "executor.order_rows": ("executor.execute",),
+}
+PORT_ONLY = {"database.query", "executor.escalate", "serve.upload",
+             "serve.readback", "serve.resolve_rows", "serve.split",
+             "serve.prune", "serve.kernel", "executor.device_wait",
+             "executor.order_rows"}
 
 
 @pytest.fixture(autouse=True)
@@ -62,6 +92,19 @@ def fake_clock(step=1000):
 
 def _names(snapshot_metrics) -> set:
     return {k.split("{")[0] for k in snapshot_metrics}
+
+
+@contextlib.contextmanager
+def no_automatic_gc():
+    """No automatic collection inside (each would be a `python.gc` span
+    on the obs clock); explicit `gc.collect()` still runs the hooks."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
 
 
 # ---------------------------------------------------------------------------
@@ -207,12 +250,13 @@ def test_disabled_hooks_record_nothing():
 
 def test_trace_export_balanced_and_nested(tmp_path):
     for o in (obs, robs):
-        o.enable(clock=fake_clock())
-        with o.span("outer", kind="count"):
-            with o.span("inner"):
+        with no_automatic_gc():
+            o.enable(clock=fake_clock())
+            with o.span("outer", kind="count"):
+                with o.span("inner"):
+                    pass
+            with o.span("solo"):
                 pass
-        with o.span("solo"):
-            pass
     path = tmp_path / "trace.json"
     n = obs.export_trace(str(path))
     assert n == 3
@@ -251,32 +295,6 @@ def test_prometheus_text_format():
     assert text == robs.prometheus_text()
 
 
-def test_validate_quantiles_rejects_bad_histograms():
-    obs.validate_quantiles({"p50": 1, "p95": 2, "p99": 3})
-    with pytest.raises(AssertionError, match="non-monotone"):
-        obs.validate_quantiles({"p50": 3, "p95": 2, "p99": 1})
-    with pytest.raises(AssertionError, match="missing"):
-        obs.validate_quantiles({"p50": 1, "p95": None, "p99": 2})
-
-
-def test_bench_envelope_shape():
-    env = obs.bench_envelope()
-    assert env["schema"] == 1
-    assert isinstance(env["host"], str)
-    assert env["torch_version"]
-    ref = robs.bench_envelope()
-    for k in ("schema", "host", "platform", "python"):
-        assert env[k] == ref[k], k
-
-
-def test_bench_envelope_names_torch_and_cuda_not_jax():
-    import torch
-    env = obs.bench_envelope()
-    assert env["torch_version"] == torch.__version__
-    assert env["cuda_version"] == torch.version.cuda   # None on a CPU build
-    assert not any("jax" in k for k in env)
-
-
 def test_thread_safety_of_registry_and_tracer():
     obs.enable()                        # real clock: concurrent increments
     errs = []
@@ -300,7 +318,9 @@ def test_thread_safety_of_registry_and_tracer():
     snap = obs.registry.snapshot()
     assert snap["t.c"] == 1200
     assert snap["t.h"]["count"] == 1200
-    assert len(obs.tracer) + obs.tracer.spans_dropped == 1200
+    # the collector's pauses are spans of their own (`python.gc`)
+    assert sum(1 for s in obs.tracer.snapshot() if s.name == "t.s") + \
+        obs.tracer.spans_dropped == 1200
 
 
 # ---------------------------------------------------------------------------
@@ -364,7 +384,10 @@ def test_instrumented_queries_bit_identical_and_metrics_flow():
                      "session.service_ns", "session.queue_wait_ns",
                      "session.coalesce_size", "session.tick_fill"):
         assert expected in names, expected
-    assert names == _names(ref.stats()["metrics"])
+    # the port's stage spans feed histograms the reference has not
+    stage = {n + "_ns" for n in PORT_ONLY}
+    assert stage - {"executor.escalate_ns"} <= names
+    assert names - stage == _names(ref.stats()["metrics"])
     assert snap["executor_cache"]["calls"] > 0
     assert snap["executor_cache"] == ref.stats()["executor_cache"]
     # per-ticket service latency: one sample per coalesced submission
@@ -468,7 +491,10 @@ def test_pool_eval_dispatch_counters_match_reference():
 
 def test_obs_on_and_off_give_identical_learning_and_serving():
     """Instrumentation never changes what is learned or served: the same
-    fit and the same queries with obs off and on are identical."""
+    fit and the same queries with obs off and on (served under a recording
+    profiler, so every span opens its `record_function` range) are
+    identical, Count and Range through the escalation ladder included."""
+    from torch.profiler import ProfilerActivity, profile
     data = make_dataset("osm", 5000, seed=6)
     K = default_K(2)
     Ls, Us = make_workload(data, 100, seed=7, K=K)
@@ -483,12 +509,15 @@ def test_obs_on_and_off_give_identical_learning_and_serving():
                                cfg=TConfig(page_bytes=1024), device="cpu")
         db.engine("torch", tapi.EngineConfig(q_chunk=8, max_cand=1,
                                              max_hits=64))
-        served = [db.query(q) for q in (
-            tapi.Count(Ls, Us), tapi.Range(Ls, Us), tapi.Point(data[::97]),
-            tapi.Knn(data[:4], k=5, metric="linf"))]
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            served = [db.query(q) for q in (
+                tapi.Count(Ls, Us), tapi.Range(Ls, Us),
+                tapi.Point(data[::97]),
+                tapi.Knn(data[:4], k=5, metric="linf"))]
         obs.disable()
-        runs.append((res, served))
-    (r0, s0), (r1, s1) = runs
+        ranges = collections.Counter(e.name for e in prof.events())
+        runs.append((res, served, ranges))
+    (r0, s0, g0), (r1, s1, g1) = runs
     assert r0.curve_best.to_json() == r1.curve_best.to_json()
     assert r0.history == r1.history
     assert [(c.to_json(), y) for c, y in r0.evaluated] == \
@@ -497,8 +526,173 @@ def test_obs_on_and_off_give_identical_learning_and_serving():
         _assert_same(b, a)
         assert (a.escalations, a.cpu_fallbacks) == (b.escalations,
                                                     b.cpu_fallbacks)
-    assert s0[0].escalations > 0             # the ladder ran, both times
+        for f in ("overflowed", "residual_overflow"):
+            if hasattr(a, f):
+                np.testing.assert_array_equal(getattr(b, f), getattr(a, f))
+    # the ladder ran for Count and Range, both times
+    assert s0[0].escalations > 0 and s0[1].escalations > 0
+    assert g0["executor.escalate"] == 0
+    assert g1["executor.escalate"] >= s1[0].escalations + s1[1].escalations
     assert "smbo.iteration_ns" in _names(obs.registry.snapshot())
+
+
+# ---------------------------------------------------------------------------
+# the port's stage spans, their profiler ranges and the collector's pauses
+# ---------------------------------------------------------------------------
+
+
+def _port_db(n=2500, **eng):
+    """A port-only database on the CPU `torch` engine whose budgets force
+    the escalation ladder (max_cand 1, max_hits 16)."""
+    data = make_dataset("osm", n, seed=0)
+    K = default_K(2)
+    Ls, Us = make_workload(data, 24, seed=1, K=K)
+    kw = dict(q_chunk=8, max_cand=1, max_hits=16)
+    kw.update(eng)
+    db = tapi.Database.fit(data, (Ls, Us), K=K, learn=False,
+                           cfg=TConfig(paging="heuristic", page_bytes=1024),
+                           device="cpu")
+    db.engine("torch", tapi.EngineConfig(**kw))
+    return db, Ls, Us
+
+
+def _parent(span, spans):
+    """The span `span` opened under: the enclosing one a level up."""
+    up = [p for p in spans if p.depth == span.depth - 1
+          and p.t0_ns <= span.t0_ns and span.t1_ns <= p.t1_ns]
+    assert len(up) <= 1, (span, up)
+    return up[0].name if up else None
+
+
+@pytest.mark.parametrize("kind", ["count", "range"])
+def test_stage_spans_nest_once_a_chunk_or_a_call(kind, monkeypatch):
+    """Every stage span of one call under forced escalation: opened under
+    the span the table names, `serve.split`, `executor.device_wait`,
+    `serve.upload` and `serve.readback` once a device call (and
+    `serve.resolve_rows` once a Range device call), `serve.prune` and
+    `serve.kernel` once a q_chunk piece of its padded batch,
+    `executor.escalate` once a rung, the rest once a call."""
+    db, Ls, Us = _port_db()
+    q = (tapi.Count if kind == "count" else tapi.Range)(Ls, Us)
+    db.query(q)                                  # every shape launched
+    eng = db._engines["torch"]
+    run = "run" if kind == "count" else "run_range"
+    sizes = []
+    real = getattr(eng, run)
+
+    def counted(Ls, Us, **kw):
+        sizes.append(len(Ls))
+        return real(Ls, Us, **kw)
+    monkeypatch.setattr(eng, run, counted)
+    with no_automatic_gc():
+        obs.enable(clock=fake_clock())
+        res = db.query(q)
+        obs.disable()
+    spans = obs.tracer.snapshot()
+    assert res.escalations > 0
+    n = collections.Counter(s.name for s in spans)
+    calls = 1 + res.escalations
+    chunks = sum(bucket_pow2(m, 8) // 8 for m in sizes)
+    assert len(sizes) == calls == res.plan.accounting.device_calls
+    want = {"database.query": 1, "planner.plan": 1, "executor.execute": 1,
+            "executor.escalate": res.escalations,
+            "executor.device_call": calls, "executor.device_wait": calls,
+            "serve.upload": calls, "serve.split": calls,
+            "serve.readback": calls, "serve.prune": chunks,
+            "serve.kernel": chunks}
+    if kind == "range":
+        want.update({"serve.resolve_rows": calls, "executor.order_rows": 1})
+    assert dict(n) == want
+    for sp in spans:
+        assert _parent(sp, spans) in STAGE_PARENTS[sp.name], sp.name
+    assert {s.labels["kind"] for s in spans
+            if s.name in ("serve.prune", "executor.escalate")} == {kind}
+    q0 = next(s for s in spans if s.name == "database.query")
+    assert q0.labels == {"kind": kind, "engine": "torch"}
+
+
+def test_obs_off_records_no_span_and_opens_no_range(monkeypatch):
+    """With obs off the path makes no span object, records nothing, opens
+    no `record_function` range under a recording profiler and imports no
+    module."""
+    from torch.profiler import ProfilerActivity, profile
+    db, Ls, Us = _port_db()
+    queries = [tapi.Count(Ls, Us), tapi.Range(Ls, Us)]
+    for q in queries:                            # warm: lazy imports done
+        db.query(q)
+    opened = []
+
+    def no_span(*a, **kw):
+        raise AssertionError(f"span object made with obs off: {a}")
+    monkeypatch.setattr(obs.tracer, "span", no_span)
+    monkeypatch.setattr("torch.profiler.record_function",
+                        lambda *a, **kw: opened.append(a))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        before = set(sys.modules)
+        for q in queries:
+            db.query(q)
+        added = set(sys.modules) - before
+    assert not opened and not added
+    assert len(obs.tracer) == 0 and obs.registry.snapshot() == {}
+    assert not {e.name for e in prof.events()} & set(STAGE_PARENTS)
+
+
+def test_profiler_sees_every_span_as_a_range_of_its_name():
+    """With obs on under a recording CPU profiler, each span opens a
+    `record_function` range of its name: as many ranges as spans."""
+    from torch.profiler import ProfilerActivity, profile
+    db, Ls, Us = _port_db()
+    queries = [tapi.Count(Ls, Us), tapi.Range(Ls, Us)]
+    for q in queries:
+        db.query(q)
+    obs.enable()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for q in queries:
+            db.query(q)
+    obs.disable()
+    spans = collections.Counter(s.name for s in obs.tracer.snapshot()
+                                if s.name != "python.gc")
+    ranges = collections.Counter(e.name for e in prof.events()
+                                 if e.name in spans)
+    assert set(STAGE_PARENTS) <= set(spans)
+    assert ranges == spans
+    # outside a profiler no range opens, the spans still record
+    obs.reset()
+    obs.enable()
+    with obs.span("solo") as sp:
+        assert sp._range is None
+    obs.disable()
+    assert [s.name for s in obs.tracer.snapshot()] == ["solo"]
+
+
+def test_collector_pauses_are_spans_while_obs_is_on():
+    """`enable` hooks the collector, `disable` unhooks it: each
+    collection in between is a `python.gc` span, labelled by generation,
+    one level under the span it paused, feeding no histogram.  The hook
+    takes no lock, so a collection that starts while the tracer's lock is
+    held still files its span later."""
+    obs.enable()
+    obs.enable()
+    assert gc.callbacks.count(obs.tracer.gc_callback) == 1
+    with no_automatic_gc():
+        with obs.span("outer"):
+            gc.collect()
+        with obs.tracer._lock:                   # as inside `_finish`
+            obs.tracer.gc_callback("start", {"generation": 0})
+            obs.tracer.gc_callback("stop", {"generation": 0})
+        spans = obs.tracer.snapshot()
+    outer, = [s for s in spans if s.name == "outer"]
+    pause = [s for s in spans if s.name == "python.gc"]
+    assert [s.labels for s in pause] == [{"generation": 2},
+                                         {"generation": 0}]
+    assert pause[0].depth == outer.depth + 1
+    assert outer.t0_ns <= pause[0].t0_ns and pause[0].t1_ns <= outer.t1_ns
+    assert "python.gc_ns" not in _names(obs.registry.snapshot())
+    obs.disable()
+    assert obs.tracer.gc_callback not in gc.callbacks
+    n = len(obs.tracer)
+    gc.collect()
+    assert len(obs.tracer) == n
 
 
 # ---------------------------------------------------------------------------
@@ -530,16 +724,19 @@ def test_logging_silent_by_default_and_byte_compatible_when_configured():
 
 def test_enable_disable_reset_roundtrip():
     assert not obs.enabled()
-    obs.enable(clock=fake_clock())
-    assert obs.enabled()
-    assert obs.clock_ns() == 1000
-    with obs.span("s"):
-        pass
-    assert len(obs.tracer) == 1
+    with no_automatic_gc():
+        obs.enable(clock=fake_clock())
+        assert obs.enabled()
+        assert obs.tracer.gc_callback in gc.callbacks
+        assert obs.clock_ns() == 1000
+        with obs.span("s"):
+            pass
+        assert len(obs.tracer) == 1
     obs.reset()
     assert len(obs.tracer) == 0 and obs.registry.snapshot() == {}
     assert obs.enabled()                # reset clears data, not the switch
     obs.disable()
     assert not obs.enabled()
+    assert obs.tracer.gc_callback not in gc.callbacks
     import time
     assert abs(obs.clock_ns() - time.perf_counter_ns()) < 10 ** 9
