@@ -25,16 +25,24 @@ no result.  Phases, each printing one JSON line:
    encode kernel k_maxsplit + 2 times (keys, one a split level, z-ranges);
 3. kernels: each kernel against its plain-torch twin on the card, bit for
    bit, with times and bounds, at the shapes its path gives it and at a
-   larger one (the encode also at the 256-point call the path made before
-   its split ran once a batch); `window_filter` at the path's shape also
-   cold (the L2 cache flushed by a write of twice its size before each
-   launch), with its ring's dynamic shared memory a block;
+   larger one; `window_filter` at the path's shape also cold (the L2 cache
+   flushed by a write of twice its size before each launch), with its
+   ring's dynamic shared memory a block.  `split_zranges` (the query split
+   and its z-ranges in one launch) takes a served batch of windows (256)
+   and the benchmark's (1,024) from each path's workload under both
+   learned curves, its `valid`, `zlo` and `zhi` held bit for bit against
+   the twin and bounded by `split_work` and its encodes' integer
+   operations, beside the split as the serving path ran it before, on the
+   encode kernel (its time and launches).  The single-curve encode, which
+   no served path launches any more (the serving paths encode inside
+   `split_zranges`), is held at that split's largest call and at 2^20;
 4. main path: a 10M-row OSM-like index (d=2, K=32, heuristic paging) under
    the learned global curve, served on the card, Count and Range batches
-   through the CUDA kernels (k_maxsplit + 1 encode launches a batch, one
-   `window_filter` launch a Count chunk and two `window_match` launches a
-   Range chunk, each reading its candidate pages by id: the page gather
-   runs in neither), held bit for bit against the plain-torch backend on
+   through the CUDA kernels (one `split_zranges` launch and no encode
+   launch a batch, one `window_filter` launch a Count chunk and two
+   `window_match` launches a Range chunk, each reading its candidate pages
+   by id: the page gather runs in neither), held bit for bit against the
+   plain-torch backend on
    the card and against brute force; the live candidate pages a Count
    query and the profiled Count and Range batches' busy ms, launches and
    top kernels.  Then (`kernels_paged` line) the paged filter on this
@@ -209,9 +217,11 @@ no result.  Phases, each printing one JSON line:
    within a relative 1e-6 and its params and AdamW state bit for bit, no
    kernel launched; the sharded params checkpointed and restored with
    ``shardings=`` byte for byte.  At most 45 s;
-19. launch check: every kernel ran on each path, the window and encode
-   kernels in the store and serving phases too, `window_filter` and
-   `sfc_encode` in the distributed and router phases, `window_match` in
+19. launch check: every kernel but the float32 flash kernel and the
+   single-curve encode ran on each path (those two only in the kernel
+   phases), the window and split kernels in the store and serving phases
+   too, `window_filter` and `split_zranges` in the distributed and router
+   phases, `window_match` in
    the router and pipeline phases, `flash_attention_tc` in every
    attention family and in lm_mesh; no kernel in lm_train's timed
    steps; each kernel's calls in cost_model beside its row.
@@ -448,6 +458,8 @@ def profile_step(fn) -> dict:
 
 def max_abs_err(a, b) -> int:
     import torch
+    if isinstance(a, tuple):
+        return max(max_abs_err(x, y) for x, y in zip(a, b, strict=True))
     check(a.shape == b.shape, f"shape {tuple(a.shape)} != {tuple(b.shape)}")
     if a.numel() == 0:
         return 0
@@ -1036,23 +1048,96 @@ def encode_work(n: int, d: int, K: int, R: int, M: int, P: int = 1,
             + P * (R * d * K + M) * 4)
 
 
-def encode_shapes(d: int, q_chunk_queries: int, batch: int) -> dict:
-    """Points of the encode calls: `path256` the largest call when the
-    split ran per q_chunk with one call per corner set (the path's
-    earlier shape), `path` the largest now that a batch's split runs at once and
-    pairs both corner sets (the last split level's 2·Q·2^(k-1)·d corners,
-    or both z-range corners of 2·Q·2^k sub-queries), and 2^20."""
+def encode_shapes(d: int, batch: int) -> dict:
+    """Points of the encode calls: `twin` the largest call of the split's
+    twin on the encode kernel over a batch (the last split level's
+    2·Q·2^(k-1)·d corners, or both z-range corners of Q·2^k leaves) and
+    2^20."""
     level = 2 * batch * 2**(K_MAXSPLIT - 1) * d
     zr = 2 * batch * 2**K_MAXSPLIT
-    return {"path256": q_chunk_queries * 2**(K_MAXSPLIT - 1) * d,
-            "path": max(level, zr), "zranges": zr, "large": 2**20}
+    return {"twin": max(level, zr), "large": 2**20}
 
 
-def phase_kernels(main_curve, pw_curve, int_ops_per_s: float) -> dict:
+SPLIT_WINDOWS = {"path": BATCH, "bench": 1024}   # windows a split call
+
+
+def split_encode_ops(queries, curve) -> int:
+    """Integer operations the split of `queries` (Q, d, 2) at K_MAXSPLIT
+    must do at least: both corner encodes of every dim a live node can cut
+    (lo < up), and both corners of every leaf, each encode counted at its
+    d * nibbles(K) 64-bit ORs of table words (2 int32 operations each).  A
+    node is live when its leftmost leaf is valid (an invalid node passes
+    its rectangle on to child 0, invalid), and its rectangle is the
+    bounding box of its leaves' (its children partition it, or repeat
+    it)."""
+    from repro_torch.core.split import recursive_split_torch
+    rects, valid = recursive_split_torch(queries, curve, K_MAXSPLIT,
+                                         backend="torch")
+    Q, S = valid.shape
+    encodes = 2 * Q * S
+    for level in range(K_MAXSPLIT):
+        nodes = rects.reshape(Q, 1 << level, S >> level, curve.d, 2)
+        lo, up = nodes[..., 0].amin(2), nodes[..., 1].amax(2)
+        live = valid[:, ::S >> level]
+        encodes += 2 * int(((lo < up).sum(-1) * live).sum())
+    return encodes * 2 * curve.d * ((curve.K + 3) // 4)
+
+
+def hold_split(paths, dev, sms: int, int_ops_per_s: float) -> dict:
+    """`split_zranges` at `SPLIT_WINDOWS` of each path's workload (kind,
+    curve, data, width_scale), against its twin, bounded by `split_work`
+    and `split_encode_ops`, beside the split as the serving path ran it
+    before (on the encode kernel: `on_encode`, its time and launches)."""
+    import torch
+    from repro_torch.core.curve import curve_tables
+    from repro_torch.core.serve import pack_query_rects
+    from repro_torch.core.split import recursive_split_torch, zranges_torch
+    from repro_torch.data.workload import make_workload
+    from repro_torch.kernels.sfc_encode.ops import (plan_split, split_work,
+                                                    split_zranges)
+    out = {}
+    for kind, curve, data, width in paths:
+        K, R = curve.K, 1 if kind == "global" else curve.num_regions
+        M = int((curve_tables(curve, "cpu")[1] < curve.d * K).sum())
+        for shape, Q in SPLIT_WINDOWS.items():
+            Ls, Us = make_workload(data, Q, seed=3, width_scale=width, K=K)
+            q = torch.from_numpy(pack_query_rects(Ls, Us)).to(dev)
+            plan = plan_split(Q, K_MAXSPLIT, R, curve.d, K, sms)
+
+            def on_encode(q):       # the split as the path ran it before
+                rects, valid = recursive_split_torch(q, curve, K_MAXSPLIT)
+                return (valid, *zranges_torch(rects, curve))
+            err = max_abs_err(on_encode(q),
+                              split_zranges(q, curve, K_MAXSPLIT))
+            check(err == 0, f"split_zranges[{kind}_{shape}] disagrees with "
+                            f"the split on the encode kernel (max {err})")
+            before = kernel_times(lambda: on_encode(q), iters=5)
+            out[f"{kind}_{shape}"] = {
+                "shape": list(q.shape), "k_maxsplit": K_MAXSPLIT, "K": K,
+                "regions": R, "placement": plan.placement,
+                "blocks": plan.blocks, "table_bytes": plan.table_bytes,
+                **_hold_kernel(
+                    f"split_zranges[{kind}_{shape}]",
+                    lambda q: split_zranges(q, curve, K_MAXSPLIT),
+                    lambda q: split_zranges(q, curve, K_MAXSPLIT,
+                                            backend="torch"), (q,),
+                    split_work(Q, curve.d, K, R, M, K_MAXSPLIT),
+                    split_encode_ops(q, curve), int_ops_per_s,
+                    plain_iters=5),
+                "on_encode": {"ms": before["ms"],
+                              "wall_ms": before["wall_ms"],
+                              "launches": before["device_events_per_call"]}}
+    return out
+
+
+def phase_kernels(main_curve, pw_curve, main_data, pw_data,
+                  int_ops_per_s: float) -> dict:
     """Each kernel at the shapes its path gives it and a larger one: the
     filter at "path", a q_chunk of queries times max_cand pages, and
-    "large", 64 candidates per query; the encode at `encode_shapes`.  The
-    encode rows are bounded by their bytes (`encode_work`)."""
+    "large", 64 candidates per query; the split at `SPLIT_WINDOWS` of each
+    path's workload; the encode at `encode_shapes`.  The encode rows are
+    bounded by their bytes (`encode_work`), the split by `split_work` and
+    `split_encode_ops`."""
     import numpy as np
     import torch
     from repro_torch.core.curve import curve_tables
@@ -1094,12 +1179,17 @@ def phase_kernels(main_curve, pw_curve, int_ops_per_s: float) -> dict:
     out["window_filter"]["smem_bytes"] = (
         cuda_lib.library().window_filter_smem_bytes(d, cap))
 
+    encodes = cuda_lib.LAUNCHES["sfc_encode"]
+    out["split_zranges"] = hold_split(
+        (("global", main_curve, main_data, 0.01),
+         ("piecewise", pw_curve, pw_data, 0.05)), dev, sms, int_ops_per_s)
+
     out["sfc_encode"] = {}
     for kind, curve in (("global", main_curve), ("piecewise", pw_curve)):
         K, T = curve.K, curve.d * curve.K
         R = 1 if kind == "global" else curve.num_regions
         M = int((curve_tables(curve, "cpu")[1] < T).sum())
-        for shape, n in encode_shapes(curve.d, Q_CHUNK, BATCH).items():
+        for shape, n in encode_shapes(curve.d, BATCH).items():
             x = rng.integers(0, 2**K, size=(n, curve.d), dtype=np.uint64)
             x[:8] = 2**K - 1                   # the sign bit at K = 32
             xt = torch.from_numpy(x.astype(np.uint32).view(np.int32)).to(dev)
@@ -1113,6 +1203,8 @@ def phase_kernels(main_curve, pw_curve, int_ops_per_s: float) -> dict:
                                lambda x: sfc_encode_ref(x, curve), (xt,),
                                encode_work(n, curve.d, K, R, M), 0,
                                int_ops_per_s, plain_iters=5)}
+    out["sfc_encode"]["held_launches"] = (cuda_lib.LAUNCHES["sfc_encode"]
+                                          - encodes)
     emit({"phase": "kernels", **out})
     return out
 
@@ -1311,10 +1403,12 @@ def _hold_path(name: str, data, index, curve, n_batches: int, seed: int,
         "range": {k: (launches[k] - after_count[k]) / n_batches
                   for k in launches}}
     for kind in ("count", "range"):
-        check(per_batch[kind]["sfc_encode"] == K_MAXSPLIT + 1,
-              f"{name}: {per_batch[kind]['sfc_encode']} sfc_encode launches "
-              f"a {kind} batch, not {K_MAXSPLIT + 1} (one a split level, one "
-              f"for the z-ranges)")
+        check(per_batch[kind]["split_zranges"] == 1
+              and per_batch[kind]["sfc_encode"] == 0,
+              f"{name}: {per_batch[kind]['split_zranges']} split_zranges "
+              f"and {per_batch[kind]['sfc_encode']} sfc_encode launches a "
+              f"{kind} batch, not 1 and 0 (the split and its z-ranges in "
+              f"one launch)")
     check(per_batch["count"]["window_filter"] == BATCH // Q_CHUNK,
           f"{name}: {per_batch['count']['window_filter']} window_filter "
           f"launches a Count batch, not one a chunk ({BATCH // Q_CHUNK})")
@@ -1358,7 +1452,7 @@ def phase_main(data, n_batches: int, curve) -> dict:
     t2 = time.perf_counter()
     res = _hold_path("main", data, index, curve, n_batches, seed=1,
                      width_scale=0.01, kernel_names=("window_filter", "window_match",
-                                   "sfc_encode"))
+                                   "split_zranges"))
     res.update(build_s=t2 - t1)
     check(res["cap"] == MAIN_CAP, f"main path cap {res['cap']} != the "
                                   f"kernel phase's {MAIN_CAP}")
@@ -1371,7 +1465,7 @@ def phase_piecewise(data, n_batches: int, curve) -> dict:
                              cfg=IndexConfig(paging="heuristic"))
     return _hold_path("piecewise", data, index, curve, n_batches, seed=2,
                       width_scale=0.05, kernel_names=("window_filter", "window_match",
-                                    "sfc_encode"))
+                                    "split_zranges"))
 
 
 # ---------------------------------------------------------------------------
@@ -1526,7 +1620,7 @@ def phase_database(data, n_batches: int, seed: int, main_res: dict) -> dict:
             check(not any(launched.values()),
                   "database: the torch engine launched a kernel")
         served[engine] = out
-    for name in ("window_filter", "window_match", "sfc_encode"):
+    for name in ("window_filter", "window_match", "split_zranges"):
         check(serve_launches[name] > 0,
               f"database: the cuda engine served without launching {name}")
     got, want = served["cuda"], served["torch"]
@@ -1700,7 +1794,7 @@ def phase_database(data, n_batches: int, seed: int, main_res: dict) -> dict:
 
     launches = {k: v - bare_launches[k] for k, v in cuda_lib.LAUNCHES.items()}
     peak = torch.cuda.max_memory_allocated()
-    for name in ("window_filter", "window_match", "sfc_encode",
+    for name in ("window_filter", "window_match", "split_zranges",
                  "sfc_encode_pool"):
         check(launches[name] > 0, f"database: {name} was not launched")
     Q = n_batches * BATCH
@@ -1999,7 +2093,7 @@ def phase_store(data, curve, traffic, seed: int) -> dict:
               > 0, "store: the small budget forced no eviction or bypass")
         launches = dict(cuda_lib.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
-        for name in ("window_filter", "window_match", "sfc_encode"):
+        for name in ("window_filter", "window_match", "split_zranges"):
             check(launches[name] > 0, f"store: {name} was not launched")
         for run in got:
             for kind, rs in got[run].items():
@@ -2157,7 +2251,7 @@ def phase_serving(db, data, seconds: float, seed: int) -> dict:
             "controller_shrinks": st["controller"]["shrinks"]})
     torch.cuda.synchronize()
     launches = dict(cuda_lib.LAUNCHES)
-    for name in ("window_filter", "window_match", "sfc_encode"):
+    for name in ("window_filter", "window_match", "split_zranges"):
         check(launches[name] > 0, f"serving: {name} was not launched")
     # exactness: replay each served log serially on both engines, one
     # entry at a time (its result dropped once compared), timed by kind
@@ -2397,7 +2491,7 @@ def phase_distributed(db, traffic, seed: int) -> dict:
                         "dirty_pages": dirty,
                         "refresh_query_s": refresh_s},
             "profile_count_batch": profile}
-    for name in ("window_filter", "sfc_encode"):
+    for name in ("window_filter", "split_zranges"):
         check(launches[name] > 0, f"distributed: {name} was not launched")
     out["launches"] = launches
     out["cards"] = torch.cuda.device_count()
@@ -2549,7 +2643,7 @@ def phase_router(data, db, traffic, updates, n_shards: int, seconds: float,
     replay_s = time.perf_counter() - t0
     lat = pt["latency_ms"]
     st = srv.stats()
-    for name in ("window_filter", "window_match", "sfc_encode"):
+    for name in ("window_filter", "window_match", "split_zranges"):
         check(launches[name] > 0, f"router: {name} was not launched")
         check(serve_launches[name] > 0,
               f"router: the server launched no {name}")
@@ -3710,11 +3804,13 @@ def _hold_counts(name: str, card, meta, launches: dict,
 def _kernel_bytes_vs_bounds(counters, curve) -> dict:
     """Every kernel op a counter logged against the bound's work at its
     shapes: flash `flash_bound`'s flops and bytes, the encode
-    `encode_work`, the window kernels the bound's bytes with every slot
-    valid (the bound itself counts the valid slots of its data), the paged
+    `encode_work`, the split `split_work`, the window kernels the bound's
+    bytes with every slot valid (the bound itself counts the valid slots of
+    its data), the paged
     filter's and match's over min(Qc * C, P) distinct pages
     (`filter_work_paged`, `match_work_paged`)."""
     from repro_torch.core.curve import curve_tables
+    from repro_torch.kernels.sfc_encode.ops import split_work
     from repro_torch.kernels.window_filter.ops import (filter_work_paged,
                                                        match_work_paged)
     out = {}
@@ -3728,11 +3824,17 @@ def _kernel_bytes_vs_bounds(counters, curve) -> dict:
                 (B, H, S, dh), KH = shapes[0], shapes[1][1]
                 b = flash_bound(B, H, KH, S, dh, "bfloat16", True, 0)
                 want = (n * b["flops"], n * b["bytes"])
-            elif key == "sfc_encode":
-                x_n, d = shapes[0]
+            elif key in ("sfc_encode", "split_zranges"):
                 pos, reg = curve_tables(curve, "cpu")
                 M = int((reg < curve.d * curve.K).sum())
-                want = (0, n * encode_work(x_n, d, curve.K, pos.shape[0], M))
+                if key == "sfc_encode":
+                    x_n, d = shapes[0]
+                    work = encode_work(x_n, d, curve.K, pos.shape[0], M)
+                else:
+                    (Q, d, _), (_, S) = shapes
+                    work = split_work(Q, d, curve.K, pos.shape[0], M,
+                                      S.bit_length() - 1)
+                want = (0, n * work)
             elif key == "window_filter" and len(shapes) == 5:
                 (P, d, cap), _, _, (Qc, C), _ = shapes
                 want = (0, n * filter_work_paged(P, Qc, C, d, cap))
@@ -4232,6 +4334,9 @@ KERNEL_ROWS = (
      "src/repro/kernels/window_filter/kernel.py:51"),
     ("sfc_encode", "src/repro_torch/csrc/sfc_encode.cu",
      "src/repro/kernels/sfc_encode/kernel.py:107"),
+    # no Pallas kernel: XLA fuses the reference's split and z-ranges
+    ("split_zranges", "src/repro_torch/csrc/sfc_encode.cu",
+     "src/repro/core/split.py:189"),
     ("sfc_encode_pool", "src/repro_torch/csrc/sfc_encode.cu",
      "src/repro/kernels/sfc_encode/kernel.py:174"),
     ("flash_attention_tc", "src/repro_torch/csrc/flash_attention_tc.cu",
@@ -4302,7 +4407,7 @@ def main(argv=None) -> int:
                                 seed=args.seed + 1, width_scale=0.05)}
     main_curve = smbo["global"]["curve"]
     pw_curve = smbo["piecewise"]["curve"]
-    kern = phase_kernels(main_curve, pw_curve, int_ops_per_s)
+    kern = phase_kernels(main_curve, pw_curve, osm, nyc, int_ops_per_s)
     kern["sfc_encode_pool"] = phase_pool_kernel(smbo, int_ops_per_s)
     main_res = phase_main(osm, args.batches, main_curve)
     paged = phase_paged_filter(main_res["_served"], args.seed)
@@ -4341,14 +4446,17 @@ def main(argv=None) -> int:
         elif name == "window_match":
             # the main path's shape: Range's chunks, pages read by id
             k = kern[name]["paged"]
-        elif name == "sfc_encode":
-            k = kern[name]["global_path"]
+        elif name in ("sfc_encode", "split_zranges"):
+            k = kern[name]["global_twin" if name == "sfc_encode"
+                          else "global_path"]
         elif name == "sfc_encode_pool":
             k = kern[name]["global_shared_path"]
             path, pw_path = smbo["global"], smbo["piecewise"]
-        # no served configuration takes float32 attention: the float32
-        # kernel is off every path and held only in kernels_flash
-        off_path = name == "flash_attention"
+        # off every path, held only in the kernel phases: the float32
+        # flash kernel (no served configuration takes float32 attention)
+        # and the single-curve encode (the serving paths encode inside
+        # split_zranges)
+        off_path = name in ("flash_attention", "sfc_encode")
         check(off_path or path["launches"][name] > 0 and (
             pw_path is None or pw_path["launches"][name] > 0),
               f"{name} was not launched on its paths")
@@ -4361,6 +4469,13 @@ def main(argv=None) -> int:
             "bound_by": k["bound_by"], "library_ms": library_ms}
         if name.startswith("sfc_encode"):
             row.update(shape=k["shape"], placement=k["placement"])
+        if name == "split_zranges":
+            row.update(shape=k["shape"], placement=k["placement"],
+                       bytes=k["bytes"], on_encode=k["on_encode"],
+                       at_shapes={s: {f: r[f] for f in (
+                           "shape", "placement", "ms", "plain_ms",
+                           "bound_ms", "bound_by", "on_encode")}
+                           for s, r in kern[name].items()})
         if name == "window_filter":
             wf = kern[name]
             row.update(cold=wf["path"]["cold"], paged=wf["paged"],
@@ -4384,10 +4499,10 @@ def main(argv=None) -> int:
         row["lm_mesh_launches"] = mesh["launches"].get(name, 0)
         row["cost_model_calls"] = sum(
             h["kernel_calls"].get(name, 0) for h in cost["held"].values())
-        if name in ("window_filter", "window_match", "sfc_encode"):
+        if name in ("window_filter", "window_match", "split_zranges"):
             check(row["store_launches"] > 0 and row["serving_launches"] > 0,
                   f"{name} was not launched by the store or the server")
-        if name in ("window_filter", "sfc_encode"):
+        if name in ("window_filter", "split_zranges"):
             check(row["distributed_launches"] > 0
                   and row["router_launches"] > 0,
                   f"{name} was not launched by the distributed engine or "
@@ -4411,7 +4526,9 @@ def main(argv=None) -> int:
                     for label, r in shapes.items()}
                 for arch, shapes in families["kernel_at_shapes"].items()}
         if off_path:
-            row["held_launches"] = flash["held_launches"][name]
+            row["held_launches"] = (kern[name]["held_launches"]
+                                    if name == "sfc_encode"
+                                    else flash["held_launches"][name])
         rows.append(row)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -384,7 +384,7 @@ class TorchEngine(BaseEngine):
 @register_engine("cuda")
 class CudaEngine(TorchEngine):
     """Single-shard batched engine on the hand-written CUDA kernels
-    (`window_filter`, `window_match`, `sfc_encode`).
+    (`window_filter`, `window_match`, `split_zranges`).
 
     The kernel wrappers take their plain twins for CPU tensors, so an
     engine on the CPU would serve through the twins while claiming the

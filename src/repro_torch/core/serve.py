@@ -3,8 +3,8 @@
 The paper's per-query page walk is re-expressed as a static-shape pipeline
 (the split once for the whole batch, the rest chunk by chunk over it):
 
-  split      — recursive query splitting (§6.1), vectorized over (Q, 2^k),
-               and the sub-queries' z-ranges
+  split      — recursive query splitting (§6.1) into (Q, 2^k) sub-queries
+               and their z-ranges: one `split_zranges` launch a batch
   prune      — page-level candidate mask: z-range overlap with any sub-query
                AND MBR intersection (metadata-only compares)
   contain    — pages whose MBR ⊆ query contribute size() with *no* gather
@@ -16,9 +16,9 @@ The paper's per-query page walk is re-expressed as a static-shape pipeline
                words, then the ids written into the static buffer)
 
 Every function here takes ``backend``: ``"cuda"`` (default) runs the
-hand-written kernels for split/z-range encodes and the filter; ``"torch"``
-runs their plain-torch twins.  Outputs are bit-identical either way.
-Exactness: the sub-rectangles partition the query, so filtering with the
+hand-written kernels for the split with its z-ranges and for the filter;
+``"torch"`` runs their plain-torch twins.  Outputs are bit-identical either
+way.  Exactness: the sub-rectangles partition the query, so filtering with the
 *full* query rectangle counts every point exactly once.
 
 The distributed engine range-shards the pages over a mesh (a sequence of
@@ -38,13 +38,13 @@ import torch
 
 from .. import obs
 from ..dist.sharding import P
+from ..kernels.sfc_encode.ops import split_zranges
 from ..kernels.window_filter.ops import (window_filter_paged,
                                         window_match_paged)
 from ..kernels.window_filter.ref import compact_rows
 from .curve import as_curve
 from .device import resolve_device
 from .index import LMSFCIndex
-from .split import recursive_split_torch, zranges_torch
 from .zorder64 import u32_le, u64_to_z64, z64_le, z64_to_u64
 
 # ---------------------------------------------------------------------------
@@ -203,19 +203,18 @@ def _chunks(arrays: ServingArrays, queries, curve, k_maxsplit: int,
             q_chunk: int, backend: str) -> list:
     """The batch in q_chunk pieces, each with its split state: (queries,
     valid (Qc, S), zlo, zhi (Qc, S, 2)).  The split and the z-ranges run
-    once on the whole batch (one encode launch per split level and one for
-    the z-ranges); they are per query, so each piece's state is what its
-    own split would give.  An empty batch is one empty piece, so it yields
-    empty outputs of the right shapes, as the reference does."""
+    once on the whole batch (one `split_zranges` launch); they are per
+    query, so each piece's state is what its own split would give.  An
+    empty batch is one empty piece, so it yields empty outputs of the right
+    shapes, as the reference does."""
     queries = _as_queries(arrays, queries)
     Q = queries.shape[0]
     if Q % q_chunk:
         raise ValueError(f"batch size {Q} is not a multiple of q_chunk="
                          f"{q_chunk}; pad with pack_query_rects")
     with obs.span("serve.split", backend=backend):
-        rects, valid = recursive_split_torch(queries, curve, k_maxsplit,
-                                             backend=backend)
-        zlo, zhi = zranges_torch(rects, curve, backend=backend)
+        valid, zlo, zhi = split_zranges(queries, curve, k_maxsplit,
+                                        backend=backend)
     return list(zip(*(t.split(q_chunk) for t in (queries, valid, zlo, zhi))))
 
 

@@ -10,9 +10,11 @@ Three execution strategies, one algorithm:
   * per-query recursion  — faithful to Algorithm 4 (CPU engine)
   * numpy batch          — (Q, 2^k) static sub-query tensor with validity
                            masks, identical leaf sets to the recursion
-  * torch batch          — the same tensorization on the device, encoding
+  * torch batch          — the same tensorization in torch, encoding
                            through `kernels.sfc_encode` (CUDA kernel or its
-                           plain-torch twin, per `backend`)
+                           plain-torch twin, per `backend`): the twin of the
+                           split kernel `kernels.sfc_encode.ops.split_zranges`
+                           (the serving path's) and SMBO's batch evaluation
 
 The torch batch holds unsigned 32-bit coordinates as int64 values in
 [0, 2^32): torch's int32 ``>>`` is arithmetic and coordinates reach 2^32-1

@@ -36,7 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {"window_filter": 0, "window_match": 0, "sfc_encode": 0,
-            "sfc_encode_pool": 0, "flash_attention": 0,
+            "sfc_encode_pool": 0, "split_zranges": 0, "flash_attention": 0,
             "flash_attention_tc": 0}
 
 _VP, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -60,6 +60,10 @@ _SIGNATURES = {
     # x, x_stride, lut, reg, out, n, d, K, R, M, P, staged, blocks, stream
     "sfc_encode_pool_launch": (_VP, _I64, _VP, _VP, _VP, _I64, _INT, _INT,
                                _INT, _INT, _INT, _INT, _INT, _VP),
+    # queries, lut, reg, valid, zlo, zhi, Q, d, K, R, M, k, staged, blocks,
+    # stream
+    "split_zranges_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _I64, _INT, _INT,
+                             _INT, _INT, _INT, _INT, _INT, _VP),
     # q, k, v, o, BH, BKH, S, dh, causal, window, stream (float32)
     "flash_attention_launch": (_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
                                _INT, _INT, _VP),

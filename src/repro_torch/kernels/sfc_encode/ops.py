@@ -1,4 +1,6 @@
-"""Public wrappers for the SFC encode kernels (csrc/sfc_encode.cu).
+"""Public wrappers for the SFC encode kernels (csrc/sfc_encode.cu), and
+for the query split and its z-ranges built on the same encode
+(`split_zranges`).
 
 ``backend="cuda"`` launches the CUDA kernel for CUDA tensors and uses the
 plain-torch twin only for CPU tensors; ``backend="torch"`` always uses the
@@ -32,6 +34,8 @@ MAX_STAGED_BYTES = 231_424     # 227 KB a block, less 1 KB of static arrays
 BLOCK_RESERVED_BYTES = 1_536   # the runtime's 1 KB a block + static arrays
 MAX_REGION_BITS = 30
 MAX_K = 32
+MAX_SPLIT_D = 16              # the split kernel's dims (its general instance)
+MAX_SPLIT_K = 16              # and levels: 2^16 leaves a window
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,18 +60,26 @@ def plan_encode(n: int, P: int, R: int, d: int, K: int,
     return _plan(n, P, table_bytes, table_bytes <= MAX_STAGED_BYTES, sms)
 
 
-def _plan(n: int, P: int, table_bytes: int, staged: bool,
-          sms: int) -> EncodePlan:
+def plan_split(Q: int, k: int, R: int, d: int, K: int,
+               sms: int) -> EncodePlan:
+    """`plan_encode`'s placement for the split kernel, whose grid covers
+    the Q * 2^k leaves at one a thread."""
+    table_bytes = R * d * nibbles(K) * 128
+    return _plan(Q << k, 1, table_bytes, table_bytes <= MAX_STAGED_BYTES,
+                 sms, per_block=THREADS)
+
+
+def _plan(n: int, P: int, table_bytes: int, staged: bool, sms: int,
+          per_block: int = THREADS * POINTS_PER_THREAD) -> EncodePlan:
     """The grid for a table staged or read through L1.  Blocks cover n at
-    THREADS * POINTS_PER_THREAD points each, capped at what the card holds
-    at once across the pool: 8 blocks an SM, or as many staged blocks as
-    its shared memory holds."""
+    `per_block` items each, capped at what the card holds at once across
+    the pool: 8 blocks an SM, or as many staged blocks as its shared memory
+    holds."""
     per_sm = BLOCKS_PER_SM
     if staged:
         per_sm = min(per_sm,
                      SMEM_PER_SM // (table_bytes + BLOCK_RESERVED_BYTES))
-    blocks = min(-(-n // (THREADS * POINTS_PER_THREAD)),
-                 max(1, sms * per_sm // P))
+    blocks = min(-(-n // per_block), max(1, sms * per_sm // P))
     return EncodePlan("smem" if staged else "l1", max(1, blocks),
                       table_bytes)
 
@@ -80,6 +92,14 @@ def encode_work(n: int, d: int, K: int, R: int, M: int, P: int = 1,
     The lookup tables are derived from the positions, so not counted."""
     return ((1 if shared else P) * n * d * 4 + P * n * 8
             + P * (R * d * K + M) * 4)
+
+
+def split_work(Q: int, d: int, K: int, R: int, M: int, k: int) -> int:
+    """Bytes the split of Q windows into 2^k leaves must move: the (Q, d, 2)
+    int32 windows in, the (Q, 2^k) bool `valid` and the two (Q, 2^k, 2)
+    int32 z-ranges out, and the curve once as `encode_work` counts it (its
+    R*d*K bit positions and M live region bits, 4 bytes each)."""
+    return Q * d * 8 + (Q << k) * (1 + 16) + (R * d * K + M) * 4
 
 
 def _live_region_bits(reg, T: int) -> int:
@@ -190,3 +210,53 @@ def sfc_encode_pool(x, curves, *, backend: str = "cuda"):
                 pool.reg, d * pool.K), P, shared=x.dim() == 2),
             (tuple(x.shape),), out))
     return out
+
+
+def split_zranges(queries, curve, k_maxsplit: int, *,
+                  backend: str = "cuda"):
+    """The query split and its z-ranges in one launch: queries (Q, d, 2)
+    int32 (unsigned bit patterns) -> (valid (Q, 2^k) bool, zlo, zhi
+    (Q, 2^k, 2) int32 Z64), bit for bit `core.split.recursive_split_torch`
+    then `zranges_torch`, invalid leaves included.  That composition is
+    the twin, taken for CPU tensors and under ``backend="torch"``."""
+    curve = as_curve(curve)
+    _check_backend(backend)
+    if backend == "torch" or queries.device.type == "cpu":
+        # core.split imports this module for its encodes
+        from ...core.split import recursive_split_torch, zranges_torch
+        rects, valid = recursive_split_torch(queries, curve, k_maxsplit,
+                                             backend=backend)
+        return (valid, *zranges_torch(rects, curve, backend=backend))
+    cuda_lib.check_cuda_int32("queries", queries, 3)
+    Q, d, two = queries.shape
+    if two != 2 or d != curve.d:
+        raise ValueError(f"queries must be (Q, {curve.d}, 2) for the curve; "
+                         f"got {tuple(queries.shape)}")
+    if d > MAX_SPLIT_D or not 0 <= k_maxsplit <= MAX_SPLIT_K:
+        raise ValueError(f"the split kernel takes d <= {MAX_SPLIT_D} and "
+                         f"0 <= k_maxsplit <= {MAX_SPLIT_K}; got d={d}, "
+                         f"k_maxsplit={k_maxsplit}")
+    with cuda_lib.uncounted():
+        _, reg = curve_tables(curve, queries.device)
+        lut = curve_lut(curve, queries.device)
+    _check_tables(reg[None], lut[None], 1, d, curve.K)
+    S = 1 << k_maxsplit
+    valid = torch.empty((Q, S), dtype=torch.bool, device=queries.device)
+    zlo, zhi = torch.empty((2, Q, S, 2), dtype=torch.int32,
+                           device=queries.device).unbind(0)
+    if Q:
+        R = lut.shape[0]
+        if cuda_lib.on_card(queries):
+            plan = plan_split(Q, k_maxsplit, R, d, curve.K,
+                              _sms(queries.device))
+            cuda_lib.launch("split_zranges_launch", queries.data_ptr(),
+                            lut.data_ptr(), reg.data_ptr(), valid.data_ptr(),
+                            zlo.data_ptr(), zhi.data_ptr(), Q, d, curve.K, R,
+                            reg.shape[0], k_maxsplit,
+                            plan.placement == "smem", plan.blocks)
+            cuda_lib.LAUNCHES["split_zranges"] += 1
+        cuda_lib.count_kernel("split_zranges", lambda: (
+            0, split_work(Q, d, curve.K, R, _live_region_bits(
+                curve_tables(curve, "cpu")[1], d * curve.K), k_maxsplit),
+            (tuple(queries.shape), tuple(valid.shape)), (valid, zlo, zhi)))
+    return valid, zlo, zhi

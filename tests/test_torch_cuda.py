@@ -752,7 +752,7 @@ def test_database_serves_through_the_cuda_engine(cuda_device):
     db.delete(data[17])
     cuda_lib.reset_launches()
     got = [db.query(q, engine="cuda") for q in queries]
-    for name in ("window_filter", "window_match", "sfc_encode"):
+    for name in ("window_filter", "window_match", "split_zranges"):
         assert cuda_lib.LAUNCHES[name] > 0, name
     assert got[0].escalations > 0
     for engine in ("torch", "cpu"):
@@ -819,7 +819,7 @@ def test_store_engine_serves_through_the_cuda_kernels(cuda_device,
         for _ in ("cold", "warm"):
             cuda_lib.reset_launches()
             got = [db.query(q) for q in queries]
-            for name in ("window_filter", "window_match", "sfc_encode"):
+            for name in ("window_filter", "window_match", "split_zranges"):
                 assert cuda_lib.LAUNCHES[name] > 0, name
             for g in got:
                 assert g.engine == "store" and g.cpu_fallbacks == 0
@@ -854,7 +854,7 @@ def test_server_on_the_card_equals_serial_replay(cuda_device):
     finally:
         srv.close(timeout=60)
     assert not srv._thread.is_alive()
-    for name in ("window_filter", "window_match", "sfc_encode"):
+    for name in ("window_filter", "window_match", "split_zranges"):
         assert cuda_lib.LAUNCHES[name] > 0, name
     assert point["completed"] == point["admitted"] and point["failed"] == 0
     for engine in ("cuda", "torch"):
@@ -947,7 +947,7 @@ def test_distributed_engine_serves_through_the_kernels_on_every_shard(
             torch.cuda.device_count() if mesh is None else 4)
         cuda_lib.reset_launches()
         got = [db.query(api.Count(Ls, Us)), db.query(api.Point(probes))]
-        for name in ("window_filter", "sfc_encode"):
+        for name in ("window_filter", "split_zranges"):
             assert cuda_lib.LAUNCHES[name] > 0, name
         want = [db.query(api.Count(Ls, Us), engine="cuda"),
                 db.query(api.Point(probes), engine="cuda")]
@@ -989,7 +989,7 @@ def test_router_shards_serve_through_the_cuda_engine(cuda_device):
                                                 metric="linf")]
     cuda_lib.reset_launches()
     got = [router.query(q) for q in queries]
-    for name in ("window_filter", "window_match", "sfc_encode"):
+    for name in ("window_filter", "window_match", "split_zranges"):
         assert cuda_lib.LAUNCHES[name] > 0, name
     for g, q in zip(got, queries):
         assert g.engine == "router[3xcuda]" and g.cpu_fallbacks == 0

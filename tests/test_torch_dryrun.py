@@ -413,7 +413,7 @@ def test_dryrun_of_every_reduced_cell_and_its_tools(monkeypatch, tmp_path,
     assert len(serve) == 2 and all(r["status"] == "ok" for r in serve)
     small = next(r for r in serve if r["shape"] == "q64_p512_c64_k4")
     assert small["global_points"] == 512 * 1024
-    assert small["kernel_calls"] == {"sfc_encode": 5, "window_filter": 4}
+    assert small["kernel_calls"] == {"split_zranges": 1, "window_filter": 4}
     capsys.readouterr()
 
     report.main(["--dir", out])

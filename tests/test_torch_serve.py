@@ -160,10 +160,11 @@ def test_forced_overflow_matches_reference():
     (4, 8, 64, 4096), (4, 16, 1, 4096), (2, 4, 64, 4), (3, 16, 64, 4096)])
 def test_split_and_zranges_run_once_a_batch(monkeypatch, k_maxsplit, q_chunk,
                                             max_cand, max_hits):
-    """Count and Range split the whole batch at once: k_maxsplit + 1
-    encode calls a batch (each split level encodes both corner sets in one
-    call, the z-ranges both corners in one), whatever Q / q_chunk, with
-    outputs equal to the reference's, forced overflow included."""
+    """Count and Range split the whole batch at once: on CPU tensors (the
+    split kernel's twin) k_maxsplit + 1 encode calls a batch (each split
+    level encodes both corner sets in one call, the z-ranges both corners
+    in one), whatever Q / q_chunk, with outputs equal to the reference's,
+    forced overflow included."""
     calls = []
     real = tsplit.sfc_encode
 
