@@ -389,7 +389,6 @@ class Executor:
                              k=k, metric=metric, engine=name, epoch=epoch,
                              stats=stats, plan=plan)
         eng.sync(eng.cfg.on_stale)
-        radius = eng.knn_radius(centers, k, metric)
         total = eng.live_row_total()
         kk = min(k, total)
         if kk <= 0:
@@ -398,19 +397,26 @@ class Executor:
             return KnnResult(neighbors=rows, offsets=offsets, dists=dd,
                              k=k, metric=metric, engine=name, epoch=epoch,
                              plan=plan)
-        Ls = np.empty_like(centers)
-        Us = np.empty_like(centers)
-        for i, (c, r) in enumerate(zip(centers, radius)):
-            Ls[i], Us[i] = knn_box(c, r, db.index.K)
-        rows_list, _, _, rounds, fallbacks, stats = \
+        with obs.span("executor.knn_seed", kind=plan.kind, engine=name):
+            radius = eng.knn_radius(centers, k, metric)
+            Ls = np.empty_like(centers)
+            Us = np.empty_like(centers)
+            for i, (c, r) in enumerate(zip(centers, radius)):
+                Ls[i], Us[i] = knn_box(c, r, db.index.K)
+        rows_list, first_over, over, rounds, fallbacks, stats = \
             self._range_exact(plan, eng, Ls, Us)
-        parts, dist_parts = [], []
-        for c, rows in zip(centers, rows_list):
-            sel, dd = knn_select(rows, c, kk, metric)
-            parts.append(sel)
-            dist_parts.append(dd)
-        rows, offsets, dd = _concat_rows(parts, db.d, dist_parts)
+        box_rows = np.array([len(r) for r in rows_list], dtype=np.int64)
+        obs.inc("executor.knn_box_rows", int(box_rows.sum()), engine=name)
+        with obs.span("executor.knn_refine", kind=plan.kind, engine=name):
+            parts, dist_parts = [], []
+            for c, rows in zip(centers, rows_list):
+                sel, dd = knn_select(rows, c, kk, metric)
+                parts.append(sel)
+                dist_parts.append(dd)
+            rows, offsets, dd = _concat_rows(parts, db.d, dist_parts)
         return KnnResult(neighbors=rows, offsets=offsets, dists=dd, k=k,
                          metric=metric, engine=name, epoch=epoch,
                          stats=stats, escalations=rounds,
-                         cpu_fallbacks=fallbacks, plan=plan)
+                         cpu_fallbacks=fallbacks, plan=plan,
+                         overflowed=first_over, residual_overflow=over,
+                         box_rows=box_rows)

@@ -279,8 +279,16 @@ class Router:
             dist_parts.append(dd)
         rows, offsets, dd = _concat_rows(sel_parts, self.d, dist_parts)
         prov = self._provenance(q, parts)
-        return KnnResult(neighbors=rows, offsets=offsets, dists=dd,
-                         k=int(q.k), metric=q.metric, **prov)
+        # a center's box overflowed if it did on any shard; box rows add
+        return KnnResult(
+            neighbors=rows, offsets=offsets, dists=dd, k=int(q.k),
+            metric=q.metric,
+            overflowed=np.any([r.overflowed for r in parts],
+                              axis=0).astype(np.int32),
+            residual_overflow=np.any([r.residual_overflow for r in parts],
+                                     axis=0).astype(np.int32),
+            box_rows=np.sum([r.box_rows for r in parts], axis=0,
+                            dtype=np.int64), **prov)
 
     # ------------------------------------------------------------------
     # updates: inserts round-robin across shards, deletes broadcast

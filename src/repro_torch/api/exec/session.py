@@ -297,5 +297,8 @@ def _slice_result(res, a: int, b: int):
             offsets=res.offsets[a:b + 1] - lo, dists=res.dists[lo:hi],
             k=res.k, metric=res.metric, engine=res.engine, epoch=res.epoch,
             stats=res.stats, escalations=res.escalations,
-            cpu_fallbacks=res.cpu_fallbacks, plan=res.plan)
+            cpu_fallbacks=res.cpu_fallbacks, plan=res.plan,
+            overflowed=res.overflowed[a:b],
+            residual_overflow=res.residual_overflow[a:b],
+            box_rows=res.box_rows[a:b])
     raise TypeError(f"unknown result type {type(res).__name__}")

@@ -170,6 +170,12 @@ class KnnResult:
     distances (squared L2 for 'l2', Chebyshev for 'linf') as float64 —
     exact whenever they fit 53 bits; the *ordering* was always decided on
     exact integers.
+
+    On device engines each center's covering box goes through the Range
+    path: `overflowed` / `residual_overflow` are that box retrieval's flags
+    (as on `RangeResult`; the CPU net is always on for kNN, so the residual
+    is all-zero) and `box_rows` the rows its box returned.  The `cpu`
+    engine retrieves no box through a device path: all three are zeros.
     """
 
     neighbors: np.ndarray      # (N, d) uint64
@@ -183,10 +189,23 @@ class KnnResult:
     escalations: int = 0
     cpu_fallbacks: int = 0
     plan: Any = None           # the executed QueryPlan (accounting filled)
+    overflowed: np.ndarray = None         # (Q,) int32 box first-pass
+                                          #   overflow events
+    residual_overflow: np.ndarray = None  # (Q,) int32 after the ladder/net
+    box_rows: np.ndarray = None           # (Q,) int64 rows each box returned
+
+    def __post_init__(self):
+        q = len(self.offsets) - 1
+        if self.overflowed is None:
+            self.overflowed = np.zeros(q, dtype=np.int32)
+        if self.residual_overflow is None:
+            self.residual_overflow = np.zeros_like(self.overflowed)
+        if self.box_rows is None:
+            self.box_rows = np.zeros(q, dtype=np.int64)
 
     @property
     def exact(self) -> bool:
-        return True
+        return not np.any(self.residual_overflow)
 
     def neighbors_for(self, i: int) -> np.ndarray:
         return self.neighbors[self.offsets[i]:self.offsets[i + 1]]

@@ -66,7 +66,8 @@ STAGE_PARENTS = {
 PORT_ONLY = {"database.query", "executor.escalate", "serve.upload",
              "serve.readback", "serve.resolve_rows", "serve.split",
              "serve.prune", "serve.kernel", "executor.device_wait",
-             "executor.order_rows"}
+             "executor.order_rows", "executor.knn_seed",
+             "executor.knn_refine"}
 
 
 @pytest.fixture(autouse=True)
@@ -384,8 +385,9 @@ def test_instrumented_queries_bit_identical_and_metrics_flow():
                      "session.service_ns", "session.queue_wait_ns",
                      "session.coalesce_size", "session.tick_fill"):
         assert expected in names, expected
-    # the port's stage spans feed histograms the reference has not
-    stage = {n + "_ns" for n in PORT_ONLY}
+    # the port's stage spans feed histograms the reference has not, and
+    # kNN's box rows a counter
+    stage = {n + "_ns" for n in PORT_ONLY} | {"executor.knn_box_rows"}
     assert stage - {"executor.escalate_ns"} <= names
     assert names - stage == _names(ref.stats()["metrics"])
     assert snap["executor_cache"]["calls"] > 0
